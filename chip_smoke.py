@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (drn_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the repository root; needs one card
+
+Phases, each printing one JSON line; the first failure ends the run with a
+non-zero exit code:
+
+  1. build    nvcc builds every kernel source of drn_tpu_torch/ops/cuda/csrc
+              for sm_90a into the git-ignored build directory.
+  2. kernels  each kernel at every distinct shape the flagship eval step
+              (charades_c3d_batched_eval, B=48) gives it, held against its
+              plain PyTorch version on the card (bf16 tolerance below), and
+              timed with CUDA events over a CUDA graph of back-to-back
+              launches: the kernel, its plain version, and `F.conv1d` of
+              the same conv as a yardstick (the port never calls it).
+  3. main     `build_model` + `evaluate()` at the flagship width (D=512,
+              F=4096, T=64, 3 levels) on the synthetic fixture, 3 batches of
+              48 (the last one ragged); the launch counts of that run; the
+              same forward with the kernels' plain versions compared; the
+              eval step's queries/s.
+
+Then the card's name and power limit (nvidia-smi), one JSON line with every
+kernel, and last {"ok": true, "device": {...}}.
+
+Without a CUDA device, or run in a directory without the package, it exits
+non-zero and prints no result. It imports nothing of JAX nor of `drn_tpu`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from collections import Counter
+
+# H100 SXM data-sheet peaks (dense): the bound of every kernel below.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# Kernel vs plain version in bf16: both multiply bf16 inputs, sum in fp32
+# (in another order) and round the output to bf16 once, so they may differ
+# by a rounding flip of the output: two bf16 ulps relative (1/64) plus 1/64
+# absolute for values near 0.
+KERNEL_ATOL = KERNEL_RTOL = 1 / 64
+# Whole forward, kernels vs plain versions, both in bf16: the flips above
+# pass through ~10 bf16 layers; LayerNorm keeps them at the ulp scale. The
+# outputs compared: match/IoU logits, and segments in base-grid units
+# (0..64), whose soft-capped exponent turns a logit flip into a relative
+# change of the distance.
+MAIN_TOL = {"match_logits": (0.05, 0.05), "iou_logits": (0.05, 0.05),
+            "segments": (0.25, 0.02)}
+
+CONFIG = "charades_c3d_batched_eval"
+EXAMPLES = 120  # 48 + 48 + 24: three eval steps, the last one padded
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one `fn()`: a CUDA graph of `iters` back-to-back
+    calls, replayed `reps` times between CUDA events; the median replay
+    over `iters`. (The graph keeps host overhead out of the number.)"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
+def flagship_conv_sites(cfg):
+    """(site, T_in, Cin, K, stride, use_norm, use_act) of every conv_ln_relu
+    launch of one eval step, in model order."""
+    m, t = cfg.model, cfg.data.num_clips
+    d = m.hidden_dim
+    sizes = [t // 2 ** l for l in range(m.num_levels)]
+    sites, t_in = [], t
+    for l in range(m.num_levels):
+        sites.append((f"level_{l}", t_in, d, 3, 1 if l == 0 else 2, True, True))
+        t_in = sizes[l]
+    sites += [(f"lateral_{l}", s, d, 1, 1, True, False)
+              for l, s in enumerate(sizes)]
+    sites += [(f"smooth_{l}", s, d, 3, 1, True, True)
+              for l, s in enumerate(sizes)]
+    gap_t = sum(sizes) + m.num_levels - 1  # the towers' gap-padded concat
+    sites += [(f"{tw}_tower_{i}", gap_t, d, 3, 1, True, True)
+              for i in range(m.head_tower_layers) for tw in ("loc", "match")]
+    sites += [(f"iou_mix_{i}", sum(sizes), 3 * d if i == 0 else d, 1, 1, True,
+               True) for i in range(m.iou_head_layers)]
+    return sites
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def kernel_phase(cfg, dev):
+    """Every kernel at every distinct flagship shape: error vs its plain
+    version, times, bound. Returns ({kernel: totals per eval step}, rows)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from drn_tpu_torch.ops.cuda import conv_block, fused_fusion, stem
+
+    b, d = cfg.eval.batch_size, cfg.model.hidden_dim
+    rng = np.random.default_rng(0)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev).to(dtype).contiguous()
+
+    def epilogue_params(cout):
+        return (randn(cout, scale=0.1).float(),                # bias, bf16 values
+                (1.0 + randn(cout, scale=0.1, dtype=torch.float32)),
+                randn(cout, scale=0.1, dtype=torch.float32))
+
+    def library_conv(x, w, k, stride):
+        """F.conv1d (cuDNN) of the same conv, input pre-laid out (B, C, T)
+        with XLA SAME padding: the yardstick, conv only."""
+        t = x.shape[1]
+        _, left, right = conv_block.same_padding(t, k, stride)
+        xt = F.pad(x.transpose(1, 2), (left, right)).contiguous()
+        wt = w.permute(2, 1, 0).contiguous()
+        return lambda: F.conv1d(xt, wt, stride=stride)
+
+    rows = []
+
+    def measure(kernel, shape, count, run, plain, library, flops, nbytes):
+        with torch.no_grad():
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            lim = KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+            if not bool((err <= lim).all()):
+                raise AssertionError(
+                    f"{kernel} {shape}: max |kernel - plain| "
+                    f"{err.max().item():.4g} over the bf16 tolerance")
+            bms, by = bound(flops, nbytes)
+            rows.append(dict(
+                kernel=kernel, shape=shape, per_step=count,
+                max_abs_err=err.max().item(), ms=cuda_time_ms(run),
+                plain_ms=cuda_time_ms(plain), library_ms=cuda_time_ms(library),
+                bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
+
+    # conv_ln_relu: one row per distinct shape, with its launches per step.
+    sites = flagship_conv_sites(cfg)
+    counts = Counter(s[1:] for s in sites)
+    for (t, cin, k, stride, use_norm, use_act), n in counts.items():
+        x = randn(b, t, cin)
+        w = randn(k, cin, d, scale=1 / math.sqrt(k * cin))
+        bias, scale, offset = epilogue_params(d)
+        args = (x, w, bias, scale, offset, stride, use_norm, use_act)
+        t_out = conv_block.same_padding(t, k, stride)[0]
+        measure("conv_ln_relu",
+                dict(B=b, T=t, Cin=cin, Cout=d, K=k, stride=stride,
+                     use_norm=use_norm, use_act=use_act), n,
+                lambda: conv_block.conv_ln_relu(*args),
+                lambda: conv_block.conv_ln_relu_reference(*args),
+                library_conv(x, w, k, stride),
+                2 * b * t_out * k * cin * d,
+                2 * (x.numel() + w.numel() + b * t_out * d) + 12 * d)
+
+    # fused_fusion_block: one launch per pyramid level.
+    kf = cfg.model.fusion_kernel_size
+    for l in range(cfg.model.num_levels):
+        t = cfg.data.num_clips // 2 ** l
+        v, q = randn(b, t, d), randn(b, d, scale=0.5)
+        w = randn(kf, d, d, scale=1 / math.sqrt(kf * d))
+        bias, scale, offset = epilogue_params(d)
+        args = (v, q, w, bias, scale, offset)
+        vq = (v * q[:, None, :]).contiguous()
+        measure("fused_fusion_block", dict(B=b, T=t, D=d, K=kf), 1,
+                lambda: fused_fusion.fused_fusion_block(*args),
+                lambda: fused_fusion.fused_fusion_block_reference(*args),
+                library_conv(vq, w, kf, 1),
+                2 * b * t * kf * d * d,
+                2 * (v.numel() + q.numel() + w.numel() + v.numel()) + 12 * d)
+
+    # fused_stem: once per step, fp32 features in.
+    fdim, t = cfg.model.feature_dim, cfg.data.num_clips
+    x = randn(b, t, fdim, scale=2.0, dtype=torch.float32) + 0.5
+    in_scale = 1.0 + randn(fdim, scale=0.1, dtype=torch.float32)
+    in_bias = randn(fdim, scale=0.1, dtype=torch.float32)
+    w = randn(3, fdim, d, scale=1 / math.sqrt(3 * fdim))
+    bias, scale, offset = epilogue_params(d)
+    args = (x, in_scale, in_bias, w, bias, scale, offset, torch.bfloat16)
+    xn = conv_block.layer_norm(x, in_scale, in_bias).to(torch.bfloat16)
+    measure("fused_stem", dict(B=b, T=t, Cin=fdim, Cout=d, K=3), 1,
+            lambda: stem.fused_stem(*args),
+            lambda: stem.fused_stem_reference(*args),
+            library_conv(xn, w, 3, 1),
+            2 * b * t * 3 * fdim * d,
+            4 * x.numel() + 8 * fdim + 2 * w.numel() + 2 * b * t * d + 12 * d)
+
+    totals = {}
+    for r in rows:
+        tot = totals.setdefault(r["kernel"], Counter())
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[key] += r["per_step"] * r[key]
+        tot["bound_" + r["bound_by"]] += r["per_step"] * r["bound_ms"]
+        tot["max_abs_err"] = max(tot["max_abs_err"], r["max_abs_err"])
+    return totals, rows
+
+
+def main_path_phase(cfg, dev):
+    """evaluate() through the kernels, with the launch counts of that run;
+    the same forward through the plain versions; the step's queries/s."""
+    import numpy as np
+    import torch
+
+    from drn_tpu_torch.evaluate import (build_model, evaluate, make_eval_step,
+                                        to_device)
+    from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
+    from drn_tpu_torch.models.layers import PLAIN_OPS
+    from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    dataset = make_dataset(cfg.data, cfg.model, split="test")
+    setup_s = time.perf_counter() - t0
+
+    steps = -(-len(dataset) // cfg.eval.batch_size)
+    m = cfg.model
+    per_step = {"fused_stem": 1, "fused_fusion_block": m.num_levels,
+                "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
+                + m.iou_head_layers}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = evaluate(cfg, model, dataset, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {k: n * steps for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite or empty metrics: {metrics}")
+
+    # The same forward with the kernels' plain versions, same weights.
+    batch = to_device(next(BatchIterator(dataset, cfg.eval.batch_size,
+                                         shuffle=False).epoch(0)), dev)
+    plain = build_model(cfg, device=dev, seed=0, ops=PLAIN_OPS)
+    plain.load_state_dict(model.state_dict())
+    args = (batch["features"], batch["word_ids"], batch["query_mask"])
+    with torch.no_grad():
+        got, ref = model(*args), plain(*args)
+    errors = {}
+    for key, (atol, rtol) in MAIN_TOL.items():
+        g, r = got[key].float(), ref[key].float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"main path: non-finite {key}")
+        err = (g - r).abs()
+        errors[key] = err.max().item()
+        if not bool((err <= atol + rtol * r.abs()).all()):
+            raise AssertionError(f"main path: {key} kernels vs plain max "
+                                 f"|diff| {errors[key]:.4g} over tolerance")
+
+    # The eval step alone on a device-resident batch, host clock around
+    # synchronised runs.
+    step = make_eval_step(cfg, model)
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / iters
+    plain_step = make_eval_step(cfg, plain)
+    for _ in range(3):
+        plain_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        plain_step(batch)
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3 / iters
+    b = cfg.eval.batch_size
+    return launches, dict(
+        phase="main", config=cfg.name, dataset="synthetic", examples=len(dataset),
+        steps=steps, batch_size=b, launches=launches, metrics=metrics,
+        max_abs_err_vs_plain=errors, setup_s=setup_s, evaluate_s=eval_s,
+        evaluate_qps=len(dataset) / eval_s, step_ms=step_ms,
+        step_qps=b / (step_ms / 1e3), plain_step_ms=plain_step_ms,
+        plain_step_qps=b / (plain_step_ms / 1e3),
+        device=torch.cuda.get_device_name(0))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
+              file=sys.stderr)
+        return 1
+    import drn_tpu_torch  # noqa: F401  (sets the TF32 switches off)
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.ops.cuda import _build
+
+    dev = torch.device("cuda")
+    base = get_config(CONFIG)
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, dataset="synthetic", synthetic_examples=EXAMPLES))
+
+    seconds = _build.build_all()
+    emit({"phase": "build", "seconds": seconds,
+          "dir": str(_build.build_dir().relative_to(_build.BUILD_ROOT.parents[3])),
+          "sources": list(_build.SOURCES)})
+
+    totals, rows = kernel_phase(cfg, dev)
+    emit({"phase": "kernel_shapes", "rows": rows})
+
+    launches, main_line = main_path_phase(cfg, dev)
+    emit(main_line)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    print(smi, flush=True)
+
+    where = {
+        "fused_stem": ("drn_tpu_torch/ops/cuda/csrc/stem.cu",
+                       "drn_tpu/ops/pallas/stem.py:111"),
+        "fused_fusion_block": ("drn_tpu_torch/ops/cuda/csrc/fused_fusion.cu",
+                               "drn_tpu/ops/pallas/fused_fusion.py:146"),
+        "conv_ln_relu": ("drn_tpu_torch/ops/cuda/csrc/conv_block.cu",
+                         "drn_tpu/ops/pallas/conv_block.py:100"),
+    }
+    kernels = []
+    for name, (source, replaces) in where.items():
+        tot = totals[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["bound_operations"]
+                         >= tot["bound_bytes"] else "bytes"),
+            "library_ms": tot["library_ms"]})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

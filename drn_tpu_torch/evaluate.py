@@ -1,0 +1,198 @@
+"""Evaluation (port of drn_tpu/evaluate.py): one step = forward → decode →
+score → top-k → NMS → recall counts, all on the device; `evaluate()` loops
+it over a dataset and fetches the counts once at the end.
+
+Entry points (`build_model`, `evaluate`, `predict`, `main`) run on `cuda`
+unless the caller passes `device="cpu"`; with no CUDA device and none
+asked for they raise instead of running on the CPU.
+
+Out of scope in this slice, and refused rather than ignored: Orbax
+checkpoints (`--checkpoint-dir`), multi-process runs, a device mesh,
+device-resident feature staging, worker processes for IO, and the readers
+of real datasets (ROADMAP.md queues each).
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from drn_tpu_torch.config import ExperimentConfig, get_config
+from drn_tpu_torch.convert import load_torch_checkpoint
+from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
+from drn_tpu_torch.models import DRN
+from drn_tpu_torch.models.layers import KERNEL_OPS, Ops
+from drn_tpu_torch.ops.metrics import metric_name, recall_at_n
+from drn_tpu_torch.ops.nms import batched_temporal_nms
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or `cuda` when None; raises when CUDA is asked for
+    (explicitly or by default) and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU unless the caller "
+            "passes device='cpu'")
+    return dev
+
+
+def init_parameters(model: DRN, seed: int = 0) -> DRN:
+    """Seeded random weights, scaled as the JAX package initialises them:
+    LayerNorm scales and the per-level distance scales 1, biases 0,
+    embedding N(0, 0.1²), every other weight N(0, 1/fan_in)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.state_dict(keep_vars=True).items():
+            if name == "scales" or ("norm" in name and name.endswith("weight")):
+                p.fill_(1.0)  # every LayerNorm's name holds "norm"
+            elif "bias" in name:
+                p.zero_()
+            elif name == "embed.weight":
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+            else:
+                fan_in = math.prod(p.shape[1:])
+                p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
+    return model
+
+
+def build_model(cfg: ExperimentConfig, device=None, seed: int = 0,
+                ops: Ops = KERNEL_OPS) -> DRN:
+    """The DRN of `cfg` with seeded random weights, on `device` (cuda by
+    default). `ops=PLAIN_OPS` builds the model from the kernels' plain
+    versions, the one the kernels' model is held against on the card."""
+    dev = resolve_device(device)
+    model = DRN(cfg.model, base_len=cfg.data.num_clips, ops=ops)
+    return init_parameters(model, seed).to(dev).eval()
+
+
+def make_eval_step(cfg: ExperimentConfig, model: DRN):
+    """step(batch of device tensors) → (counts, n_valid, segments in
+    seconds (B, K, 2) in NMS order, keep (B, K), top scores (B, K))."""
+    e = cfg.eval
+    base_len = float(cfg.data.num_clips)
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor]):
+        out = model(batch["features"], batch["word_ids"], batch["query_mask"])
+        score = torch.sigmoid(out["match_logits"])
+        if e.score_use_iou_head and e.score_iou_weight > 0.0:
+            iou_s = torch.sigmoid(out["iou_logits"])
+            if e.score_iou_weight != 1.0:
+                iou_s = iou_s ** e.score_iou_weight
+            score = score * iou_s
+        # Stable sort: ties go to the lower index, as lax.top_k does
+        # (torch.topk promises no tie order on CUDA).
+        ranked = torch.sort(score, dim=1, descending=True, stable=True)
+        top_scores = ranked.values[:, :e.top_k]
+        top_idx = ranked.indices[:, :e.top_k]
+        top_segs = torch.gather(out["segments"], 1,
+                                top_idx[..., None].expand(-1, -1, 2))
+        _, keep, sorted_segs = batched_temporal_nms(
+            top_segs, top_scores, e.nms_iou_threshold)
+        counts = recall_at_n(sorted_segs, keep, batch["gt_grid"],
+                             ns=e.recall_ns, iou_thresholds=e.iou_thresholds,
+                             valid=batch["valid"])
+        n_valid = batch["valid"].float().sum()
+        scale = (batch["duration"] / base_len)[:, None, None]
+        return counts, n_valid, sorted_segs * scale, keep, top_scores
+
+    return eval_step
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+
+
+def _refuse_out_of_scope(cfg: ExperimentConfig, mesh, device_features) -> None:
+    if mesh is not None:
+        raise NotImplementedError("evaluate(mesh=...): the port runs one "
+                                  "device so far (ROADMAP.md, multi-GPU)")
+    if device_features:
+        raise NotImplementedError("evaluate(device_features=True): staging "
+                                  "is not ported yet (ROADMAP.md)")
+    if cfg.data.num_workers > 0:
+        raise NotImplementedError("data.num_workers > 0: the port batches in "
+                                  "process only (ROADMAP.md)")
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError("multi-process evaluation is not ported "
+                                  "yet (ROADMAP.md, multi-GPU)")
+
+
+def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
+             split: str = "test", *, device=None, mesh=None,
+             device_features: bool = False) -> Dict[str, float]:
+    """Full-split evaluation → {"R@n,IoU=m": percentage, "mIoU": ...}."""
+    _refuse_out_of_scope(cfg, mesh, device_features)
+    dev = resolve_device(device)
+    model.to(dev).eval()
+    if dataset is None:
+        dataset = make_dataset(cfg.data, cfg.model, split=split)
+    batches = BatchIterator(dataset, cfg.eval.batch_size, shuffle=False, seed=0)
+    step = make_eval_step(cfg, model)
+    totals: Optional[Dict] = None
+    n_total = None
+    for batch in batches.epoch(0):
+        counts, n_valid, *_ = step(to_device(batch, dev))
+        if totals is None:
+            totals, n_total = counts, n_valid
+        else:
+            totals = {k: totals[k] + v for k, v in counts.items()}
+            n_total = n_total + n_valid
+    if totals is None:
+        return {}
+    n = float(n_total)  # the one device→host fetch of the loop
+    return {metric_name(k): 100.0 * float(v) / max(n, 1.0)
+            for k, v in sorted(totals.items(), key=str)}
+
+
+def predict(cfg: ExperimentConfig, model: DRN, batch: Dict[str, np.ndarray],
+            device=None):
+    """Top segments (in seconds when the batch has "duration", else grid
+    units), NMS keep mask and scores, as numpy arrays. "gt_grid", "valid"
+    and "duration" are each optional."""
+    dev = resolve_device(device)
+    model.to(dev).eval()
+    b = np.asarray(batch["features"]).shape[0]
+    full = dict(batch)
+    full.setdefault("gt_grid", np.zeros((b, 2), np.float32))
+    full.setdefault("valid", np.ones((b,), bool))
+    full.setdefault("duration", np.full((b,), float(cfg.data.num_clips),
+                                        np.float32))
+    _, _, segs, keep, scores = make_eval_step(cfg, model)(to_device(full, dev))
+    return segs.cpu().numpy(), keep.cpu().numpy(), scores.cpu().numpy()
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="drn_tpu_torch evaluator")
+    p.add_argument("--config", default="charades_c3d")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="Orbax checkpoint directory (not supported yet)")
+    p.add_argument("--torch-checkpoint", default=None,
+                   help=".pth in the parity schema")
+    p.add_argument("--split", default="test")
+    p.add_argument("--device", default=None,
+                   help="torch device; cuda when omitted")
+    args = p.parse_args(argv)
+    if args.checkpoint_dir:
+        raise NotImplementedError(
+            "--checkpoint-dir: reading Orbax checkpoints is queued in "
+            "ROADMAP.md (the Orbax→.pth path); convert to a parity-schema "
+            ".pth and pass --torch-checkpoint")
+    if not args.torch_checkpoint:
+        p.error("--torch-checkpoint is required")
+    cfg = get_config(args.config)
+    model = build_model(cfg, device=args.device)
+    model.load_state_dict(load_torch_checkpoint(args.torch_checkpoint))
+    results = evaluate(cfg, model, split=args.split, device=args.device)
+    for k, v in results.items():
+        print(f"{k}: {v:.2f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,102 @@
+"""The assembled DRN (port of drn_tpu/models/drn.py).
+
+    features (B, T, F), word_ids (B, L), query_mask (B, L)
+      → query encoder → per-level query vectors
+      → backbone      → per-level video features     [fused_stem, conv_ln_relu]
+      → fusion        → query-conditioned levels     [fused_fusion_block]
+      → temporal FPN  → pyramid                      [conv_ln_relu]
+      → heads         → (d_start, d_end), match logits, IoU logits
+                                                     [conv_ln_relu]
+
+`state_dict()` / `load_state_dict()` use the flat `TorchDRNParity` schema
+(keys such as `stem.conv.weight`, `fusion_conv.0.bias`, `scales`), so a
+reference-schema `.pth` loads directly: each submodule's parameter names
+are unique across submodules, and the submodule prefix is dropped.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from drn_tpu_torch.config import ModelConfig
+from drn_tpu_torch.models.backbone import Backbone
+from drn_tpu_torch.models.fpn import TemporalFPN
+from drn_tpu_torch.models.fusion import CrossModalFusion
+from drn_tpu_torch.models.heads import GroundingHeads, IoUHead
+from drn_tpu_torch.models.layers import KERNEL_OPS, Ops
+from drn_tpu_torch.models.query_encoder import QueryEncoder
+from drn_tpu_torch.ops.temporal import decode_segments, pyramid_locations
+
+_PARTS = ("query_encoder", "backbone", "fusion", "fpn", "heads", "iou_head")
+
+
+def location_metadata(cfg: ModelConfig, base_len: int, device=None):
+    """Flat per-location (locations, strides, level_ids), level-major."""
+    locs = torch.cat(pyramid_locations(base_len, cfg.num_levels, device))
+    sizes = [base_len // 2 ** l for l in range(cfg.num_levels)]
+    strides = np.concatenate([np.full((t,), float(2 ** l), np.float32)
+                              for l, t in enumerate(sizes)])
+    level_ids = np.concatenate([np.full((t,), l, np.int64)
+                                for l, t in enumerate(sizes)])
+    return (locs, torch.as_tensor(strides, device=device),
+            torch.as_tensor(level_ids, device=device))
+
+
+class DRN(nn.Module):
+    def __init__(self, cfg: ModelConfig, base_len: int,
+                 ops: Ops = KERNEL_OPS):
+        super().__init__()
+        if base_len % (2 ** (cfg.num_levels - 1)):
+            raise ValueError("num_clips must be divisible by the coarsest "
+                             "pyramid stride")
+        self.cfg, self.base_len = cfg, base_len
+        self.query_encoder = QueryEncoder(cfg)
+        self.backbone = Backbone(cfg, ops)
+        self.fusion = CrossModalFusion(cfg, ops)
+        self.fpn = TemporalFPN(cfg, ops)
+        self.heads = GroundingHeads(cfg, ops)
+        self.iou_head = IoUHead(cfg, ops)
+        locs, strides, level_ids = location_metadata(cfg, base_len)
+        self.register_buffer("locations", locs, persistent=False)
+        self.register_buffer("strides", strides, persistent=False)
+        self.register_buffer("level_ids", level_ids, persistent=False)
+        self._owner = {k.split(".")[0]: part for part in _PARTS
+                       for k in getattr(self, part).state_dict()}
+
+    def state_dict(self, keep_vars: bool = False):
+        """Flat parity-schema keys (submodule prefix dropped)."""
+        return OrderedDict(
+            (k.split(".", 1)[1], v)
+            for k, v in super().state_dict(keep_vars=keep_vars).items())
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        unknown = [k for k in state_dict if k.split(".")[0] not in self._owner]
+        if unknown and strict:
+            raise KeyError(f"keys outside the parity schema: {unknown[:5]}")
+        sd = {f"{self._owner[k.split('.')[0]]}.{k}": v
+              for k, v in state_dict.items() if k not in unknown}
+        return super().load_state_dict(sd, strict=strict, assign=assign)
+
+    def forward(self, features, word_ids, query_mask) -> Dict[str, torch.Tensor]:
+        queries = self.query_encoder(word_ids, query_mask)
+        v_levels = self.backbone(features)
+        fused = self.fusion(v_levels, queries)
+        pyramid = self.fpn(fused)
+        d_start, d_end, match_logits = self.heads(pyramid)
+        segments = decode_segments(self.locations, d_start, d_end,
+                                   float(self.base_len))
+        iou_logits = self.iou_head(pyramid, segments, self.level_ids,
+                                   self.strides)
+        return {
+            "d_start": d_start,            # (B, N) base-grid units
+            "d_end": d_end,                # (B, N)
+            "match_logits": match_logits,  # (B, N)
+            "iou_logits": iou_logits,      # (B, N)
+            "segments": segments,          # (B, N, 2) base-grid units
+        }

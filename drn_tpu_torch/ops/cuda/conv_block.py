@@ -1,0 +1,155 @@
+"""conv1d + bias + LayerNorm + ReLU in one kernel: the port of
+`drn_tpu/ops/pallas/conv_block.py::conv_ln_relu`.
+
+`conv_ln_relu` launches the CUDA kernel (csrc/conv_block.cu, built on first
+use) for a CUDA tensor and calls `conv_ln_relu_reference`, its plain
+PyTorch version, for a CPU tensor. Nothing else chooses between them, and
+a CUDA tensor the kernel does not take raises: there is no fallback.
+
+Layout as in the JAX package: activations (B, T, C) channels-last, weights
+WIO (K, Cin, Cout). The kernel takes bf16 activations and weights and fp32
+bias / scale / offset, accumulates in fp32 and adds the bias to the fp32
+accumulator (the TPU kernel does the same; the JAX package's XLA path
+rounds the conv output to bf16 before its bf16 bias add, which the bf16
+tolerances of the tests absorb). Forward only: the recompute backward
+comes with the training slice.
+
+The helpers below (`same_padding`, `layer_norm`, `check_cuda_inputs`,
+`stream_of`) are shared by the other two kernels' modules.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from drn_tpu_torch.ops.cuda import _build
+
+LN_EPS = 1e-6  # flax.linen.LayerNorm default
+KERNEL_COUTS = (64, 128, 256, 512)  # instantiated in csrc/conv_gemm.cuh
+
+
+def same_padding(t: int, k: int, stride: int) -> Tuple[int, int, int]:
+    """XLA 'SAME' padding: (out_t, pad_left, pad_right), the remainder on
+    the right (left 0 / right 1 for k=3, even T, stride 2)."""
+    out_t = -(-t // stride)
+    total = max((out_t - 1) * stride + k - t, 0)
+    left = total // 2
+    return out_t, left, total - left
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+               eps: float = LN_EPS) -> torch.Tensor:
+    """flax.linen.LayerNorm over the last axis, in fp32: fast variance
+    E[x²] − E[x]² clamped at 0, then (x − mean)·(rsqrt(var + eps)·scale)
+    + offset. (torch's layer_norm takes the variance another way.)"""
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    return (x - mean) * (torch.rsqrt(var + eps) * scale.float()) \
+        + offset.float()
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_inputs(name: str, **tensors: Tuple[torch.Tensor, torch.dtype,
+                                                  tuple]) -> None:
+    """Raise unless every tensor is on the first one's CUDA device, of the
+    dtype and shape given (None in a shape matches any size), contiguous,
+    16-byte aligned, and needs no gradient."""
+    dev = None
+    for arg, (t, dtype, shape) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, not CUDA")
+        dev = dev or t.device
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype} "
+                            "(the kernel takes no other type)")
+        if t.dim() != len(shape) or any(
+                s is not None and s != d for s, d in zip(shape, t.shape)):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: {arg} requires grad; the CUDA kernel is forward "
+                "only (run under torch.no_grad())")
+
+
+def check_widths(name: str, cin: int, cout: int) -> None:
+    if cin % 8:
+        raise ValueError(f"{name}: Cin={cin} must be a multiple of 8")
+    if cout not in KERNEL_COUTS:
+        raise ValueError(f"{name}: Cout={cout} not in {KERNEL_COUTS}")
+
+
+def conv_ln_relu_reference(x, w, b, scale, offset, stride: int = 1,
+                           use_norm: bool = True, use_act: bool = True):
+    """Plain PyTorch version of the kernel, with its arithmetic: K shifted
+    (B, T_out, Cin) @ (Cin, Cout) products accumulated in fp32 over
+    SAME-padded taps, + b in fp32, optional flax LayerNorm in fp32,
+    optional ReLU, output in x.dtype."""
+    k = w.shape[0]
+    t = x.shape[1]
+    out_t, left, right = same_padding(t, k, stride)
+    xp = F.pad(x.float(), (0, 0, left, right))
+    span = (out_t - 1) * stride + 1
+    acc = None
+    for i in range(k):
+        y = xp[:, i:i + span:stride] @ w[i].float()
+        acc = y if acc is None else acc + y
+    acc = acc + b.float()
+    if use_norm:
+        acc = layer_norm(acc, scale, offset)
+    if use_act:
+        acc = torch.relu(acc)
+    return acc.to(x.dtype)
+
+
+def conv_ln_relu(x, w, b, scale, offset, stride: int = 1,
+                 use_norm: bool = True, use_act: bool = True):
+    """relu(LayerNorm(conv1d(x, w, SAME, stride) + b) · scale + offset).
+
+    x: (B, T, Cin); w: (K, Cin, Cout) WIO; b/scale/offset: (Cout,).
+    Output (B, ceil(T/stride), Cout) in x.dtype. On CUDA: x and w bf16,
+    b/scale/offset fp32, Cin % 8 == 0, Cout in KERNEL_COUTS.
+    """
+    if x.device.type == "cpu":
+        return conv_ln_relu_reference(x, w, b, scale, offset, stride,
+                                      use_norm, use_act)
+    bsz, t, cin = x.shape
+    k, _, cout = w.shape
+    check_widths("conv_ln_relu", cin, cout)
+    if stride < 1 or k < 1:
+        raise ValueError(f"conv_ln_relu: stride={stride}, K={k}")
+    check_cuda_inputs(
+        "conv_ln_relu",
+        x=(x, torch.bfloat16, (None, None, cin)),
+        w=(w, torch.bfloat16, (k, cin, cout)),
+        b=(b, torch.float32, (cout,)),
+        scale=(scale, torch.float32, (cout,)),
+        offset=(offset, torch.float32, (cout,)),
+    )
+    out_t, left, _ = same_padding(t, k, stride)
+    out = torch.empty((bsz, out_t, cout), dtype=torch.bfloat16,
+                      device=x.device)
+    fn = _build.entry("conv_block", "drn_conv_ln_relu", 6, 10)
+    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+            offset.data_ptr(), out.data_ptr(), bsz, t, cin, cout, k, stride,
+            out_t, left, int(use_norm), int(use_act), stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"conv_ln_relu: CUDA error {rc} at launch")
+    conv_ln_relu.launches += 1
+    return out
+
+
+conv_ln_relu.launches = 0

@@ -1,0 +1,120 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need a CUDA device and `nvcc` (the kernels are built from
+drn_tpu_torch/ops/cuda/csrc at first use); without a card they skip. On
+the machine with the card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+(`--noconftest`: tests/conftest.py sets up JAX, which that machine
+lacks; nothing here needs it.)
+
+Tolerance: both sides multiply bf16 inputs, sum in fp32 in another order
+and round the output to bf16 once: two bf16 ulps relative plus 1/64
+absolute. chip_smoke.py checks the same at the flagship shapes.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from drn_tpu_torch.ops.cuda import (conv_ln_relu, fused_fusion_block,
+                                    fused_stem, launch_counts)
+from drn_tpu_torch.ops.cuda.conv_block import conv_ln_relu_reference
+from drn_tpu_torch.ops.cuda.fused_fusion import fused_fusion_block_reference
+from drn_tpu_torch.ops.cuda.stem import fused_stem_reference
+
+pytestmark = pytest.mark.cuda
+TOL = dict(atol=1 / 64, rtol=1 / 64)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, scale=1.0, dtype=torch.bfloat16, seed=0):
+    a = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+
+def _epilogue(dev, cout):
+    return (_randn(dev, cout, scale=0.1, seed=1).float(),
+            1.0 + _randn(dev, cout, scale=0.1, dtype=torch.float32, seed=2),
+            _randn(dev, cout, scale=0.1, dtype=torch.float32, seed=3))
+
+
+@pytest.mark.parametrize("t,cin,cout,k,stride,use_norm,use_act", [
+    (64, 512, 512, 3, 1, True, True),
+    (64, 512, 512, 3, 2, True, True),
+    (57, 128, 128, 3, 2, False, True),   # ragged T, odd length
+    (114, 256, 512, 3, 1, True, True),   # the heads' gap concat
+    (112, 1536, 512, 1, 1, True, True),  # IoU mix_0
+    (33, 64, 64, 1, 1, True, False),
+])
+def test_conv_ln_relu_kernel(dev, t, cin, cout, k, stride, use_norm,
+                             use_act):
+    x = _randn(dev, 6, t, cin)
+    w = _randn(dev, k, cin, cout, scale=(k * cin) ** -0.5, seed=4)
+    args = (x, w, *_epilogue(dev, cout), stride, use_norm, use_act)
+    before = launch_counts()["conv_ln_relu"]
+    got = conv_ln_relu(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["conv_ln_relu"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               conv_ln_relu_reference(*args).float(), **TOL)
+
+
+@pytest.mark.parametrize("t", [64, 16, 21])
+def test_fused_fusion_block_kernel(dev, t):
+    d = 512
+    v, q = _randn(dev, 6, t, d), _randn(dev, 6, d, scale=0.5, seed=5)
+    w = _randn(dev, 3, d, d, scale=(3 * d) ** -0.5, seed=6)
+    args = (v, q, w, *_epilogue(dev, d))
+    torch.testing.assert_close(
+        fused_fusion_block(*args).float(),
+        fused_fusion_block_reference(*args).float(), **TOL)
+
+
+def test_fused_stem_kernel(dev):
+    cin, d = 1024, 512
+    x = _randn(dev, 4, 64, cin, scale=3.0, dtype=torch.float32) + 0.5
+    args = (x, 1.0 + _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=7),
+            _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=8),
+            _randn(dev, 3, cin, d, scale=(3 * cin) ** -0.5, seed=9),
+            *_epilogue(dev, d), torch.bfloat16)
+    torch.testing.assert_close(fused_stem(*args).float(),
+                               fused_stem_reference(*args).float(), **TOL)
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    x = _randn(dev, 2, 16, 64)
+    w = _randn(dev, 3, 64, 64)
+    b, s, o = _epilogue(dev, 64)
+    with pytest.raises(TypeError):
+        conv_ln_relu(x.float(), w, b, s, o)              # fp32 activations
+    with pytest.raises(ValueError):
+        conv_ln_relu(x[:, ::2], w, b, s, o)              # not contiguous
+    with pytest.raises(ValueError):
+        conv_ln_relu(_randn(dev, 2, 16, 60), _randn(dev, 3, 60, 64), b, s, o)
+    with pytest.raises(RuntimeError):
+        conv_ln_relu(x, w.clone().requires_grad_(), b, s, o)
+
+
+def test_eval_step_kernels_vs_plain(dev):
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.evaluate import build_model, evaluate
+    from drn_tpu_torch.models.layers import PLAIN_OPS
+
+    cfg = get_config("synthetic_tiny")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                               synthetic_examples=16))
+    model = build_model(cfg, seed=1)
+    plain = build_model(cfg, seed=1, ops=PLAIN_OPS)
+    got, want = evaluate(cfg, model), evaluate(cfg, plain)
+    assert set(got) == set(want)
+    assert all(np.isfinite(v) for v in got.values())

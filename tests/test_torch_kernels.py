@@ -1,0 +1,153 @@
+"""The port's plain kernel versions (what its wrappers run on a CPU tensor)
+against the JAX package's Pallas kernels in interpret mode and their XLA
+references, on the same seeded numpy inputs.
+
+Tolerances: fp32 1e-4 (summation order only). bf16: both sides take bf16
+inputs, accumulate in fp32 and round the output to bf16 once, so they may
+differ by a rounding flip: 1/128 absolute + 1/128 relative (two bf16 ulps
+at |y| ~ 1). Against the XLA reference in bf16 the conv output is also
+rounded to bf16 before a bf16 bias add on the JAX side: 1/16 absolute
++ 1/32 relative.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from drn_tpu.ops.pallas import conv_block as pl_conv
+from drn_tpu.ops.pallas import fused_fusion as pl_fusion
+from drn_tpu.ops.pallas import stem as pl_stem
+from drn_tpu_torch.ops.cuda import (conv_ln_relu, fused_fusion_block,
+                                    fused_stem, launch_counts)
+from drn_tpu_torch.ops.cuda.conv_block import same_padding
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4, 1e-4, 1e-4, 1e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 1 / 128, 1 / 128,
+                       1 / 16, 1 / 32)}
+
+
+def _np_inputs(b=4, t=32, cin=128, cout=128, k=3, seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    return dict(
+        x=f32(rng.normal(size=(b, t, cin))),
+        w=f32(rng.normal(size=(k, cin, cout)) * 0.05),
+        b=f32(rng.normal(size=(cout,)) * 0.1),
+        scale=f32(rng.normal(size=(cout,)) * 0.2 + 1.0),
+        offset=f32(rng.normal(size=(cout,)) * 0.1),
+    )
+
+
+def _jax(a, dt):
+    return jnp.asarray(a, dt)
+
+
+def _torch(a, dt):
+    return torch.from_numpy(a).to(dt)
+
+
+def _bias(a, dt):
+    """The bias as the kernel takes it: rounded to the compute dtype, fp32."""
+    return torch.from_numpy(a).to(dt).float()
+
+
+def _close(got, want, atol, rtol):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k,stride,t,use_norm,use_act", [
+    (3, 1, 32, True, True),
+    (3, 2, 32, True, True),
+    (1, 1, 32, True, False),   # the FPN laterals
+    (3, 1, 57, True, True),    # ragged T (the heads' gap concat is T=114)
+    (3, 2, 57, False, True),
+    (1, 2, 32, False, False),
+])
+def test_conv_ln_relu_plain_matches_pallas(dtype, k, stride, t, use_norm,
+                                           use_act):
+    jdt, tdt, atol, rtol, xatol, xrtol = DTYPES[dtype]
+    p = _np_inputs(t=t, k=k)
+    args_j = (_jax(p["x"], jdt), _jax(p["w"], jdt), _jax(p["b"], jdt),
+              _jax(p["scale"], jnp.float32), _jax(p["offset"], jnp.float32))
+    want = pl_conv.conv_ln_relu(*args_j, stride, use_norm, use_act)
+    ref = pl_conv.xla_reference(*args_j, stride=stride, use_norm=use_norm,
+                                use_act=use_act)
+    before = launch_counts()
+    got = conv_ln_relu(_torch(p["x"], tdt), _torch(p["w"], tdt),
+                       _bias(p["b"], tdt), _torch(p["scale"], torch.float32),
+                       _torch(p["offset"], torch.float32), stride, use_norm,
+                       use_act)
+    assert launch_counts() == before  # a CPU tensor launches no kernel
+    assert got.dtype == tdt
+    assert tuple(got.shape) == tuple(want.shape) == (
+        4, same_padding(t, k, stride)[0], 128)
+    _close(got, want, atol, rtol)
+    _close(got, ref, xatol, xrtol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t", [32, 57])
+def test_fused_fusion_block_plain_matches_pallas(dtype, t):
+    jdt, tdt, atol, rtol, xatol, xrtol = DTYPES[dtype]
+    p = _np_inputs(t=t)
+    q = np.random.default_rng(1).normal(size=(4, 128)).astype(np.float32)
+    args_j = (_jax(p["x"], jdt), _jax(q, jdt), _jax(p["w"], jdt),
+              _jax(p["b"], jdt), _jax(p["scale"], jnp.float32),
+              _jax(p["offset"], jnp.float32))
+    want = pl_fusion.fused_fusion_block(*args_j)
+    ref = pl_fusion.xla_block_reference(*args_j)
+    got = fused_fusion_block(_torch(p["x"], tdt), _torch(q, tdt),
+                             _torch(p["w"], tdt), _bias(p["b"], tdt),
+                             _torch(p["scale"], torch.float32),
+                             _torch(p["offset"], torch.float32))
+    assert got.dtype == tdt and tuple(got.shape) == tuple(want.shape)
+    _close(got, want, atol, rtol)
+    _close(got, ref, xatol, xrtol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fused_stem_plain_matches_pallas(dtype):
+    jdt, tdt, atol, rtol, xatol, xrtol = DTYPES[dtype]
+    rng = np.random.default_rng(0)
+    f32 = lambda a: np.asarray(a, np.float32)
+    x = f32(rng.normal(size=(4, 16, 128)) * 3.0 + 0.5)
+    i_s = f32(rng.normal(size=(128,)) * 0.2 + 1.0)
+    i_b = f32(rng.normal(size=(128,)) * 0.1)
+    w = f32(rng.normal(size=(3, 128, 128)) * 0.05)
+    b = f32(rng.normal(size=(128,)) * 0.1)
+    o_s = f32(rng.normal(size=(128,)) * 0.2 + 1.0)
+    o_b = f32(rng.normal(size=(128,)) * 0.1)
+    j = lambda a: jnp.asarray(a, jnp.float32)
+    want = pl_stem.fused_stem(j(x), j(i_s), j(i_b), j(w), j(b), j(o_s),
+                              j(o_b), jdt)
+    ref = pl_stem.xla_reference(j(x), j(i_s), j(i_b), j(w), j(b), j(o_s),
+                                j(o_b), cdtype=jdt)
+    t = torch.from_numpy
+    got = fused_stem(t(x), t(i_s), t(i_b), t(w).to(tdt), _bias(b, tdt),
+                     t(o_s), t(o_b), tdt)
+    assert got.dtype == tdt and tuple(got.shape) == tuple(want.shape)
+    _close(got, want, atol, rtol)
+    _close(got, ref, xatol, xrtol)
+
+
+@pytest.mark.parametrize("t,k,stride", [(64, 3, 2), (57, 3, 2), (114, 3, 1),
+                                        (112, 1, 1), (16, 3, 2)])
+def test_same_padding_matches_xla(t, k, stride):
+    """XLA SAME is asymmetric for stride 2 (left 0 / right 1 at k=3, even
+    T): the port's padding gives XLA's output length and alignment."""
+    import jax
+
+    x = np.arange(t, dtype=np.float32)[None, :, None]
+    w = np.zeros((k, 1, 1), np.float32)
+    w[0] = 1.0  # picks the first tap: reveals the left padding
+    want = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (stride,), "SAME",
+        dimension_numbers=("NWC", "WIO", "NWC"))
+    out_t, left, right = same_padding(t, k, stride)
+    xp = np.pad(x[0, :, 0], (left, right))
+    np.testing.assert_array_equal(np.asarray(want)[0, :, 0],
+                                  xp[0:(out_t - 1) * stride + 1:stride])

@@ -1,0 +1,128 @@
+"""The port as a package: its config equals the JAX package's, it imports
+nothing of JAX nor of `drn_tpu`, and its entry points refuse to run on the
+CPU unless asked to."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import drn_tpu.config as jax_config
+import drn_tpu_torch.config as port_config
+from drn_tpu_torch import evaluate as port_eval
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_SOURCES = sorted((ROOT / "drn_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("name", jax_config.list_configs())
+def test_config_registry_equals_jax(name):
+    assert port_config.list_configs() == jax_config.list_configs()
+    assert dataclasses.asdict(port_config.get_config(name)) == \
+        dataclasses.asdict(jax_config.get_config(name))
+
+
+def test_config_dataclasses_equal_jax():
+    for cls in ("ModelConfig", "DataConfig", "TrainConfig", "EvalConfig",
+                "MeshConfig", "ExperimentConfig"):
+        assert dataclasses.asdict(getattr(port_config, cls)()) == \
+            dataclasses.asdict(getattr(jax_config, cls)()), cls
+
+
+def test_port_imports_no_jax_and_nothing_of_drn_tpu():
+    """Import every port module and chip_smoke in a fresh interpreter;
+    no jax/flax/optax/orbax or drn_tpu module may be loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import drn_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(drn_tpu_torch.__path__, "
+        "'drn_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'drn_tpu'))\n"
+        "print(len([m for m in sys.modules if m.startswith('drn_tpu_torch')]),"
+        " bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20 and bad == "[]", out.stdout
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_names_no_jax_nor_drn_tpu(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)"
+                         r"\b", text, re.M)
+    # `drn_tpu_torch` itself starts with `drn_tpu`: match only the name
+    # that is not followed by `_torch`.
+    assert not re.search(r"\bdrn_tpu\.", text)
+    assert not re.search(r"^\s*(import|from)\s+drn_tpu\b(?!_)", text, re.M)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
+    cfg = port_config.get_config("synthetic_tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_eval.build_model(cfg)
+    model = port_eval.build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_eval.evaluate(cfg, model)
+    batch = {"features": np.zeros((2, 32, 128), np.float32),
+             "word_ids": np.ones((2, 8), np.int32),
+             "query_mask": np.ones((2, 8), bool)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_eval.predict(cfg, model, batch)
+    segs, keep, scores = port_eval.predict(cfg, model, batch, device="cpu")
+    assert segs.shape == (2, cfg.eval.top_k, 2) and keep.dtype == bool
+    assert np.isfinite(scores).all()
+
+
+def test_evaluate_on_the_cpu_when_asked():
+    cfg = port_config.get_config("synthetic_tiny")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                               synthetic_examples=12))
+    model = port_eval.build_model(cfg, device="cpu")
+    res = port_eval.evaluate(cfg, model, device="cpu")
+    assert set(res) == {"mIoU", "R@1,IoU=0.3", "R@1,IoU=0.5", "R@1,IoU=0.7",
+                        "R@5,IoU=0.3", "R@5,IoU=0.5", "R@5,IoU=0.7"}
+    assert all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in res.values())
+
+
+def test_out_of_scope_options_raise():
+    cfg = port_config.get_config("synthetic_tiny")
+    model = port_eval.build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        port_eval.evaluate(cfg, model, device="cpu", device_features=True)
+    with pytest.raises(NotImplementedError):
+        port_eval.evaluate(cfg, model, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_eval.evaluate(port_config.get_config("charades_c3d"), model,
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="Orbax"):
+        port_eval.main(["--config", "synthetic_tiny", "--checkpoint-dir",
+                        "ckpt", "--device", "cpu"])
+
+
+def test_main_evaluates_a_parity_checkpoint(tmp_path, capsys):
+    cfg = port_config.get_config("synthetic_tiny")
+    model = port_eval.build_model(cfg, device="cpu", seed=3)
+    path = tmp_path / "m.pth"
+    torch.save({"model": model.state_dict()}, path)
+    port_eval.main(["--config", "synthetic_tiny", "--torch-checkpoint",
+                    str(path), "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 7 and lines[0].startswith("mIoU: ")
