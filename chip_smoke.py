@@ -9,19 +9,31 @@ non-zero exit code:
   1. build    nvcc builds every kernel source of drn_tpu_torch/ops/cuda/csrc
               for sm_90a into the git-ignored build directory.
   2. kernels  each kernel at every distinct shape the flagship eval step
-              (charades_c3d_batched_eval, B=48) gives it, held against its
-              plain PyTorch version on the card (bf16 tolerance below), and
-              timed with CUDA events over a CUDA graph of back-to-back
-              launches: the kernel, its plain version, and `F.conv1d` of
-              the same conv as a yardstick (the port never calls it).
+              (charades_c3d_batched_eval, B=48) and train step (B=384:
+              forward, the backward's recomputes, the fusion dx convs)
+              give it, and the stem at activitynet_c3d's Cin=500 (B=16,
+              T=256), held against its plain PyTorch version on the card
+              (bf16 tolerance below), and timed with CUDA events over a
+              CUDA graph of back-to-back launches: the kernel, its plain
+              version, and `F.conv1d` of the same conv as a yardstick (the
+              port never calls it).
   3. main     `build_model` + `evaluate()` at the flagship width (D=512,
               F=4096, T=64, 3 levels) on the synthetic fixture, 3 batches of
               48 (the last one ragged); the launch counts of that run; the
               same forward with the kernels' plain versions compared; the
               eval step's queries/s.
+  4. train    the two-stage trainer at the same width with its training
+              batch (data.batch_size=384) on one device-resident batch of
+              the fixture: 5 stage-1 steps through `make_train_step` (finite,
+              falling losses) with the launch counts of those steps; one
+              step's loss and every parameter gradient against the same
+              step through the kernels' plain versions with autograd; one
+              stage-2 (IoU head only) step that moves the IoU head alone;
+              the step's time and examples/s, kernels and plain.
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
-kernel, and last {"ok": true, "device": {...}}.
+kernel (its launches from the `main` run, `fused_fusion`'s from the
+`train` run), and last {"ok": true, "device": {...}}.
 
 Without a CUDA device, or run in a directory without the package, it exits
 non-zero and prints no result. It imports nothing of JAX nor of `drn_tpu`.
@@ -53,9 +65,23 @@ KERNEL_ATOL = KERNEL_RTOL = 1 / 64
 # change of the distance.
 MAIN_TOL = {"match_logits": (0.05, 0.05), "iou_logits": (0.05, 0.05),
             "segments": (0.25, 0.02)}
+# Train step, kernels vs plain versions, both in bf16: the loss within 2%
+# relative, each parameter's gradient within 8% relative L2 error. The
+# kernels' backward rounds each LayerNorm cotangent to bf16 before the
+# conv's VJP (as the JAX package's does) where the plain versions'
+# autograd keeps it in fp32: 2^-9 relative per element. A weight's
+# gradient sums such products over all B·T rows, and on the fixture's
+# noise features the terms mostly cancel, so the sum's relative error is
+# many times 2^-9: on an H100 80GB HBM3 at 700 W, 3.9% for the stem's
+# weight and 0.3% for the median parameter; 8% leaves room for another
+# card's summation order.
+TRAIN_LOSS_RTOL = 0.02
+TRAIN_GRAD_REL = 0.08
 
 CONFIG = "charades_c3d_batched_eval"
 EXAMPLES = 120  # 48 + 48 + 24: three eval steps, the last one padded
+TRAIN_BATCH = 384  # the config's data.batch_size, its training batch
+TRAIN_STEPS = 5
 
 
 def emit(obj) -> None:
@@ -121,15 +147,21 @@ def bound(flops: float, nbytes: float):
 
 
 def kernel_phase(cfg, dev):
-    """Every kernel at every distinct flagship shape: error vs its plain
-    version, times, bound. Returns ({kernel: totals per eval step}, rows)."""
+    """Every kernel at every distinct shape of both main paths: error vs
+    its plain version, times, bound. Rows of the eval step (B=48), of the
+    train step (B=384: the forward's launches, the backward's recomputes
+    of the pre-LayerNorm conv with LayerNorm and ReLU off, each fusion
+    level's dx conv), and the stem at activitynet_c3d's Cin=500 (0 per
+    step: coverage). Returns ({(path, kernel): totals per step}, rows)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from drn_tpu_torch.ops.cuda import conv_block, fused_fusion, stem
 
-    b, d = cfg.eval.batch_size, cfg.model.hidden_dim
+    d, kf = cfg.model.hidden_dim, cfg.model.fusion_kernel_size
+    t0, fdim = cfg.data.num_clips, cfg.model.feature_dim
+    level_ts = [t0 // 2 ** l for l in range(cfg.model.num_levels)]
     rng = np.random.default_rng(0)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -152,7 +184,8 @@ def kernel_phase(cfg, dev):
 
     rows = []
 
-    def measure(kernel, shape, count, run, plain, library, flops, nbytes):
+    def measure(path, kernel, shape, count, run, plain, library, flops,
+                nbytes):
         with torch.no_grad():
             got, want = run(), plain()
             torch.cuda.synchronize()
@@ -164,64 +197,90 @@ def kernel_phase(cfg, dev):
                     f"{err.max().item():.4g} over the bf16 tolerance")
             bms, by = bound(flops, nbytes)
             rows.append(dict(
-                kernel=kernel, shape=shape, per_step=count,
+                path=path, kernel=kernel, shape=shape, per_step=count,
                 max_abs_err=err.max().item(), ms=cuda_time_ms(run),
                 plain_ms=cuda_time_ms(plain), library_ms=cuda_time_ms(library),
                 bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
 
-    # conv_ln_relu: one row per distinct shape, with its launches per step.
-    sites = flagship_conv_sites(cfg)
-    counts = Counter(s[1:] for s in sites)
-    for (t, cin, k, stride, use_norm, use_act), n in counts.items():
-        x = randn(b, t, cin)
-        w = randn(k, cin, d, scale=1 / math.sqrt(k * cin))
-        bias, scale, offset = epilogue_params(d)
-        args = (x, w, bias, scale, offset, stride, use_norm, use_act)
-        t_out = conv_block.same_padding(t, k, stride)[0]
-        measure("conv_ln_relu",
-                dict(B=b, T=t, Cin=cin, Cout=d, K=k, stride=stride,
-                     use_norm=use_norm, use_act=use_act), n,
-                lambda: conv_block.conv_ln_relu(*args),
-                lambda: conv_block.conv_ln_relu_reference(*args),
-                library_conv(x, w, k, stride),
-                2 * b * t_out * k * cin * d,
-                2 * (x.numel() + w.numel() + b * t_out * d) + 12 * d)
+    def conv_rows(path, b, counts):
+        """conv_ln_relu: one row per distinct shape, with its launches per
+        step."""
+        for (t, cin, k, stride, use_norm, use_act), n in counts.items():
+            x = randn(b, t, cin)
+            w = randn(k, cin, d, scale=1 / math.sqrt(k * cin))
+            bias, scale, offset = epilogue_params(d)
+            args = (x, w, bias, scale, offset, stride, use_norm, use_act)
+            t_out = conv_block.same_padding(t, k, stride)[0]
+            measure(path, "conv_ln_relu",
+                    dict(B=b, T=t, Cin=cin, Cout=d, K=k, stride=stride,
+                         use_norm=use_norm, use_act=use_act), n,
+                    lambda: conv_block.conv_ln_relu(*args),
+                    lambda: conv_block.conv_ln_relu_reference(*args),
+                    library_conv(x, w, k, stride),
+                    2 * b * t_out * k * cin * d,
+                    2 * (x.numel() + w.numel() + b * t_out * d)
+                    + (12 if use_norm else 4) * d)
 
-    # fused_fusion_block: one launch per pyramid level.
-    kf = cfg.model.fusion_kernel_size
-    for l in range(cfg.model.num_levels):
-        t = cfg.data.num_clips // 2 ** l
-        v, q = randn(b, t, d), randn(b, d, scale=0.5)
-        w = randn(kf, d, d, scale=1 / math.sqrt(kf * d))
-        bias, scale, offset = epilogue_params(d)
-        args = (v, q, w, bias, scale, offset)
-        vq = (v * q[:, None, :]).contiguous()
-        measure("fused_fusion_block", dict(B=b, T=t, D=d, K=kf), 1,
-                lambda: fused_fusion.fused_fusion_block(*args),
-                lambda: fused_fusion.fused_fusion_block_reference(*args),
-                library_conv(vq, w, kf, 1),
-                2 * b * t * kf * d * d,
-                2 * (v.numel() + q.numel() + w.numel() + v.numel()) + 12 * d)
+    def fusion_rows(path, b, epilogue):
+        """fused_fusion_block (epilogue) or fused_fusion: one launch per
+        pyramid level."""
+        for t in level_ts:
+            v, q = randn(b, t, d), randn(b, d, scale=0.5)
+            w = randn(kf, d, d, scale=1 / math.sqrt(kf * d))
+            args = (v, q, w, *epilogue_params(d)[:3 if epilogue else 1])
+            name = "fused_fusion_block" if epilogue else "fused_fusion"
+            vq = (v * q[:, None, :]).contiguous()
+            measure(path, name, dict(B=b, T=t, D=d, K=kf), 1,
+                    lambda: getattr(fused_fusion, name)(*args),
+                    lambda: getattr(fused_fusion, name + "_reference")(*args),
+                    library_conv(vq, w, kf, 1),
+                    2 * b * t * kf * d * d,
+                    2 * (2 * v.numel() + q.numel() + w.numel())
+                    + (12 if epilogue else 4) * d)
 
-    # fused_stem: once per step, fp32 features in.
-    fdim, t = cfg.model.feature_dim, cfg.data.num_clips
-    x = randn(b, t, fdim, scale=2.0, dtype=torch.float32) + 0.5
-    in_scale = 1.0 + randn(fdim, scale=0.1, dtype=torch.float32)
-    in_bias = randn(fdim, scale=0.1, dtype=torch.float32)
-    w = randn(3, fdim, d, scale=1 / math.sqrt(3 * fdim))
-    bias, scale, offset = epilogue_params(d)
-    args = (x, in_scale, in_bias, w, bias, scale, offset, torch.bfloat16)
-    xn = conv_block.layer_norm(x, in_scale, in_bias).to(torch.bfloat16)
-    measure("fused_stem", dict(B=b, T=t, Cin=fdim, Cout=d, K=3), 1,
-            lambda: stem.fused_stem(*args),
-            lambda: stem.fused_stem_reference(*args),
-            library_conv(xn, w, 3, 1),
-            2 * b * t * 3 * fdim * d,
-            4 * x.numel() + 8 * fdim + 2 * w.numel() + 2 * b * t * d + 12 * d)
+    def stem_row(path, b, t, cin, count, use_norm=True, **note):
+        """fused_stem on fp32 features; without its output LayerNorm and
+        ReLU for the backward's recompute."""
+        x = randn(b, t, cin, scale=2.0, dtype=torch.float32) + 0.5
+        in_scale = 1.0 + randn(cin, scale=0.1, dtype=torch.float32)
+        in_bias = randn(cin, scale=0.1, dtype=torch.float32)
+        w = randn(3, cin, d, scale=1 / math.sqrt(3 * cin))
+        bias, scale, offset = epilogue_params(d)
+        args = (x, in_scale, in_bias, w, bias, scale, offset, torch.bfloat16,
+                use_norm, use_norm)
+        xn = conv_block.layer_norm(x, in_scale, in_bias).to(torch.bfloat16)
+        measure(path, "fused_stem",
+                dict(B=b, T=t, Cin=cin, Cout=d, K=3, use_norm=use_norm,
+                     use_act=use_norm, **note),
+                count, lambda: stem.fused_stem(*args),
+                lambda: stem.fused_stem_reference(*args),
+                library_conv(xn, w, 3, 1),
+                2 * b * t * 3 * cin * d,
+                4 * x.numel() + 8 * cin + 2 * w.numel() + 2 * b * t * d
+                + (12 if use_norm else 4) * d)
+
+    fwd = [s[1:] for s in flagship_conv_sites(cfg)]
+    b = cfg.eval.batch_size
+    conv_rows("eval", b, Counter(fwd))
+    fusion_rows("eval", b, True)
+    stem_row("eval", b, t0, fdim, 1)
+
+    # The train step: the forward's launches, the backward's recompute of
+    # each block (LayerNorm and ReLU off), each fusion level's dx conv.
+    recompute = [(t, cin, k, st, False, False) for t, cin, k, st, _, _ in fwd]
+    dx = [(t, d, kf, 1, False, False) for t in level_ts]
+    conv_rows("train", TRAIN_BATCH, Counter(fwd + recompute + dx))
+    fusion_rows("train", TRAIN_BATCH, True)
+    fusion_rows("train", TRAIN_BATCH, False)
+    stem_row("train", TRAIN_BATCH, t0, fdim, 1)
+    stem_row("train", TRAIN_BATCH, t0, fdim, 1, use_norm=False)
+
+    # activitynet_c3d's 500 features: bf16 rows not 16-byte aligned.
+    stem_row("coverage", 16, 256, 500, 0, config="activitynet_c3d")
 
     totals = {}
     for r in rows:
-        tot = totals.setdefault(r["kernel"], Counter())
+        tot = totals.setdefault((r["path"], r["kernel"]), Counter())
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
             tot[key] += r["per_step"] * r[key]
         tot["bound_" + r["bound_by"]] += r["per_step"] * r["bound_ms"]
@@ -232,7 +291,6 @@ def kernel_phase(cfg, dev):
 def main_path_phase(cfg, dev):
     """evaluate() through the kernels, with the launch counts of that run;
     the same forward through the plain versions; the step's queries/s."""
-    import numpy as np
     import torch
 
     from drn_tpu_torch.evaluate import (build_model, evaluate, make_eval_step,
@@ -240,6 +298,7 @@ def main_path_phase(cfg, dev):
     from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
     from drn_tpu_torch.models.layers import PLAIN_OPS
     from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from drn_tpu_torch.profile import host_ms
 
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=0)
@@ -250,7 +309,7 @@ def main_path_phase(cfg, dev):
     m = cfg.model
     per_step = {"fused_stem": 1, "fused_fusion_block": m.num_levels,
                 "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
-                + m.iou_head_layers}
+                + m.iou_head_layers, "fused_fusion": 0}
     reset_launch_counts()
     t0 = time.perf_counter()
     metrics = evaluate(cfg, model, dataset, device=dev)
@@ -284,25 +343,9 @@ def main_path_phase(cfg, dev):
 
     # The eval step alone on a device-resident batch, host clock around
     # synchronised runs.
-    step = make_eval_step(cfg, model)
-    for _ in range(3):
-        step(batch)
-    torch.cuda.synchronize()
-    iters = 20
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        step(batch)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / iters
-    plain_step = make_eval_step(cfg, plain)
-    for _ in range(3):
-        plain_step(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        plain_step(batch)
-    torch.cuda.synchronize()
-    plain_step_ms = (time.perf_counter() - t0) * 1e3 / iters
+    step, plain_step = make_eval_step(cfg, model), make_eval_step(cfg, plain)
+    step_ms = host_ms(lambda: step(batch), 20)
+    plain_step_ms = host_ms(lambda: plain_step(batch), 20)
     b = cfg.eval.batch_size
     return launches, dict(
         phase="main", config=cfg.name, dataset="synthetic", examples=len(dataset),
@@ -311,6 +354,99 @@ def main_path_phase(cfg, dev):
         evaluate_qps=len(dataset) / eval_s, step_ms=step_ms,
         step_qps=b / (step_ms / 1e3), plain_step_ms=plain_step_ms,
         plain_step_qps=b / (plain_step_ms / 1e3),
+        device=torch.cuda.get_device_name(0))
+
+
+def train_phase(cfg, dev):
+    """The trainer's stage-1 steps through the kernels with their launch
+    counts, one step's gradients against the plain versions', a stage-2
+    step, and the step's time."""
+    import torch
+
+    from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
+    from drn_tpu_torch.evaluate import build_model, to_device
+    from drn_tpu_torch.models.layers import PLAIN_OPS
+    from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from drn_tpu_torch.profile import host_ms
+    from drn_tpu_torch.train import (loss_and_grads, make_optimizer,
+                                     make_train_step)
+
+    t0 = time.perf_counter()
+    batch = to_device(next(BatchIterator(
+        make_dataset(cfg.data, cfg.model, split="train"), TRAIN_BATCH,
+        shuffle=False).epoch(0)), dev)
+    model = build_model(cfg, device=dev, seed=0).train()
+    step = make_train_step(cfg, model, make_optimizer(cfg, 1, model))
+    setup_s = time.perf_counter() - t0
+
+    # Forward 1 / L / (3L + 2·towers + IoU mixes); the backward recomputes
+    # every pre-LayerNorm conv with the kernels (stem, `fused_fusion` for
+    # each fusion level, each conv block) and runs each fusion level's dx
+    # conv through `conv_ln_relu`.
+    m = cfg.model
+    blocks = 3 * m.num_levels + 2 * m.head_tower_layers + m.iou_head_layers
+    per_step = {"fused_stem": 2, "fused_fusion_block": m.num_levels,
+                "conv_ln_relu": 2 * blocks + m.num_levels,
+                "fused_fusion": m.num_levels}
+    reset_launch_counts()
+    losses = [step(batch)["loss"].item() for _ in range(TRAIN_STEPS)]
+    launches = launch_counts()
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches}, expected "
+                             f"{want}")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"stage-1 losses not finite and falling: "
+                             f"{losses}")
+
+    # One step's gradients, kernels vs plain versions, same weights/batch.
+    plain = build_model(cfg, device=dev, seed=0, ops=PLAIN_OPS).train()
+    plain.load_state_dict(model.state_dict())
+    got = loss_and_grads(cfg, model, batch)["loss"].item()
+    ref = loss_and_grads(cfg, plain, batch)["loss"].item()
+    if abs(got - ref) > TRAIN_LOSS_RTOL * abs(ref):
+        raise AssertionError(f"train loss kernels {got} vs plain {ref}")
+    plain_params = dict(plain.named_parameters())
+    grad_err = {}
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        g, r = p.grad.float(), plain_params[name].grad.float()
+        rn = r.norm().item()
+        err = (g - r).norm().item() / rn if rn > 0 else g.norm().item()
+        grad_err[name] = err
+    worst = max(grad_err, key=grad_err.get)
+    if not grad_err[worst] <= TRAIN_GRAD_REL:
+        raise AssertionError(f"gradient of {worst}: relative L2 error "
+                             f"{grad_err[worst]:.4g} over {TRAIN_GRAD_REL}")
+
+    step_ms = host_ms(lambda: step(batch), TRAIN_STEPS)
+    plain_step = make_train_step(cfg, plain, make_optimizer(cfg, 1, plain))
+    plain_step_ms = host_ms(lambda: plain_step(batch), 3)
+
+    # Stage 2, IoU head only: nothing else may move.
+    cfg2 = cfg.replace(train=dataclasses.replace(cfg.train, stage=2))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    stage2_loss = make_train_step(cfg2, model, make_optimizer(cfg2, 1, model))(
+        batch)["loss"].item()
+    moved = sorted({model.owner(k) for k, v in model.state_dict().items()
+                    if not torch.equal(v, before[k])})
+    if moved != ["iou_head"] or not math.isfinite(stage2_loss):
+        raise AssertionError(f"stage-2 step moved {moved}, loss "
+                             f"{stage2_loss}")
+    return launches, dict(
+        phase="train", config=cfg.name, dataset="synthetic",
+        batch_size=TRAIN_BATCH, steps=TRAIN_STEPS, setup_s=setup_s,
+        losses=losses, launches=launches,
+        launches_per_step={k: n // TRAIN_STEPS for k, n in launches.items()},
+        loss_kernels=got, loss_plain=ref,
+        max_grad_rel_err={"param": worst, "err": grad_err[worst]},
+        median_grad_rel_err=sorted(grad_err.values())[len(grad_err) // 2],
+        step_ms=step_ms, examples_per_s=TRAIN_BATCH / (step_ms / 1e3),
+        plain_step_ms=plain_step_ms,
+        plain_examples_per_s=TRAIN_BATCH / (plain_step_ms / 1e3),
+        stage2_loss=stage2_loss, stage2_moved=moved,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         device=torch.cuda.get_device_name(0))
 
 
@@ -336,10 +472,21 @@ def main() -> int:
           "sources": list(_build.SOURCES)})
 
     totals, rows = kernel_phase(cfg, dev)
-    emit({"phase": "kernel_shapes", "rows": rows})
+    emit({"phase": "kernel_shapes", "rows": rows,
+          "per_step": {f"{path}/{k}": dict(tot)
+                       for (path, k), tot in totals.items()}})
 
     launches, main_line = main_path_phase(cfg, dev)
     emit(main_line)
+
+    train_cfg = base.replace(data=dataclasses.replace(
+        base.data, dataset="synthetic", batch_size=TRAIN_BATCH,
+        synthetic_examples=TRAIN_BATCH))
+    train_launches, train_line = train_phase(train_cfg, dev)
+    emit(train_line)
+    # Each kernel's launches on its main path: the eval step's kernels in
+    # the `main` run, `fused_fusion` (backward only) in the `train` run.
+    launches["fused_fusion"] = train_launches["fused_fusion"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -354,10 +501,14 @@ def main() -> int:
                                "drn_tpu/ops/pallas/fused_fusion.py:146"),
         "conv_ln_relu": ("drn_tpu_torch/ops/cuda/csrc/conv_block.cu",
                          "drn_tpu/ops/pallas/conv_block.py:100"),
+        "fused_fusion": ("drn_tpu_torch/ops/cuda/csrc/fused_fusion.cu",
+                         "drn_tpu/ops/pallas/fused_fusion.py:61"),
     }
     kernels = []
     for name, (source, replaces) in where.items():
-        tot = totals[name]
+        # Per eval step for the eval path's kernels (their first slice),
+        # per train step for `fused_fusion`, which runs only there.
+        tot = totals["train" if name == "fused_fusion" else "eval", name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

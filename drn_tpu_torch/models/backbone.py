@@ -29,7 +29,7 @@ class Backbone(nn.Module):
 
     def _pack_stem(self):
         dt, s = cdt(self.cfg), self.stem
-        f32 = lambda p: p.detach().float().contiguous()
+        f32 = lambda p: p.float().contiguous()
         return (f32(self.input_norm.weight), f32(self.input_norm.bias),
                 conv_wio(s.conv, dt), kernel_bias(s.conv.bias, dt),
                 f32(s.norm.weight), f32(s.norm.bias))

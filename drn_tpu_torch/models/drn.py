@@ -68,6 +68,11 @@ class DRN(nn.Module):
         self._owner = {k.split(".")[0]: part for part in _PARTS
                        for k in getattr(self, part).state_dict()}
 
+    def owner(self, key: str) -> str:
+        """The submodule (one of query_encoder, backbone, fusion, fpn,
+        heads, iou_head) that holds the parity-schema parameter `key`."""
+        return self._owner[key.split(".")[0]]
+
     def state_dict(self, keep_vars: bool = False):
         """Flat parity-schema keys (submodule prefix dropped)."""
         return OrderedDict(
@@ -89,8 +94,10 @@ class DRN(nn.Module):
         fused = self.fusion(v_levels, queries)
         pyramid = self.fpn(fused)
         d_start, d_end, match_logits = self.heads(pyramid)
+        # No gradient through the IoU head's sampling positions (the
+        # two-stage recipe), as the JAX package's stop_gradient.
         segments = decode_segments(self.locations, d_start, d_end,
-                                   float(self.base_len))
+                                   float(self.base_len)).detach()
         iou_logits = self.iou_head(pyramid, segments, self.level_ids,
                                    self.strides)
         return {

@@ -30,8 +30,7 @@ class CrossModalFusion(nn.Module):
     def _pack(self):
         dt = cdt(self.cfg)
         return [(conv_wio(c, dt), kernel_bias(c.bias, dt),
-                 n.weight.detach().float().contiguous(),
-                 n.bias.detach().float().contiguous())
+                 n.weight.float().contiguous(), n.bias.float().contiguous())
                 for c, n in zip(self.fusion_conv, self.fusion_norm)]
 
     def forward(self, v_levels: List[torch.Tensor],

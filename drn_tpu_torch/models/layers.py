@@ -4,8 +4,10 @@ table, the conv block, flax's LayerNorm, linear temporal sampling.
 Parameters follow the `TorchDRNParity` state-dict schema (nn.Conv1d weights
 (Cout, Cin, K), nn.LayerNorm weight/bias) so a reference-schema `.pth`
 loads as it is. The kernels take WIO weights (K, Cin, Cout) in the compute
-dtype; `packed()` builds that form once and reuses it until the parameters
-change, so nothing is transposed per call.
+dtype; without gradients `packed()` builds that form once and reuses it
+until the parameters change, so nothing is transposed per call; when a
+gradient is wanted it builds it in the graph on every call, so the
+gradient reaches the parameters.
 """
 
 from __future__ import annotations
@@ -16,12 +18,13 @@ import torch
 import torch.nn as nn
 
 from drn_tpu_torch.config import ModelConfig
-from drn_tpu_torch.ops.cuda.conv_block import (LN_EPS, conv_ln_relu,
+from drn_tpu_torch.ops.cuda.autograd import (ConvLnReluFn,
+                                             FusedFusionBlockFn, FusedStemFn)
+from drn_tpu_torch.ops.cuda.conv_block import (LN_EPS,
                                                conv_ln_relu_reference,
                                                layer_norm)
-from drn_tpu_torch.ops.cuda.fused_fusion import (
-    fused_fusion_block, fused_fusion_block_reference)
-from drn_tpu_torch.ops.cuda.stem import fused_stem, fused_stem_reference
+from drn_tpu_torch.ops.cuda.fused_fusion import fused_fusion_block_reference
+from drn_tpu_torch.ops.cuda.stem import fused_stem_reference
 
 __all__ = ["Ops", "KERNEL_OPS", "PLAIN_OPS", "ConvBlock", "cdt",
            "layer_norm", "linear_time_sample", "packed", "LN_EPS"]
@@ -35,10 +38,12 @@ class Ops(NamedTuple):
     fused_stem: Callable
 
 
-# The wrappers: kernel on a CUDA tensor, plain version on a CPU tensor.
-KERNEL_OPS = Ops(conv_ln_relu, fused_fusion_block, fused_stem)
-# The plain versions on any device: the model that the kernels' model is
-# held against on the card.
+# The kernels' autograd Functions (ops/cuda/autograd.py): kernel on a CUDA
+# tensor, plain version on a CPU tensor, forward and recompute backward.
+KERNEL_OPS = Ops(ConvLnReluFn.apply, FusedFusionBlockFn.apply,
+                 FusedStemFn.apply)
+# The plain versions on any device, differentiated by autograd: the model
+# that the kernels' model is held against on the card.
 PLAIN_OPS = Ops(conv_ln_relu_reference, fused_fusion_block_reference,
                 fused_stem_reference)
 
@@ -50,7 +55,11 @@ def cdt(cfg: ModelConfig) -> torch.dtype:
 def packed(owner: nn.Module, build: Callable[[], tuple], *params,
            dtype: torch.dtype):
     """`build()`'s result, cached on `owner` until one of `params` changes
-    (in place: `_version`; by a move: `data_ptr`) or `dtype` does."""
+    (in place: `_version`; by a move: `data_ptr`) or `dtype` does. When
+    grad is enabled and a parameter needs it, `build()` runs in the graph
+    on every call instead (the cache would cut the gradient off)."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return build()
     key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
     cache = owner.__dict__.get("_packed_cache")
     if cache is None or cache[0] != key:
@@ -62,13 +71,13 @@ def packed(owner: nn.Module, build: Callable[[], tuple], *params,
 
 def conv_wio(conv: nn.Conv1d, dtype: torch.dtype) -> torch.Tensor:
     """(Cout, Cin, K) → contiguous WIO (K, Cin, Cout) in `dtype`."""
-    return conv.weight.detach().permute(2, 1, 0).contiguous().to(dtype)
+    return conv.weight.permute(2, 1, 0).contiguous().to(dtype)
 
 
 def kernel_bias(bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The bias rounded to the compute dtype (as the JAX package casts it)
     and handed to the kernel in fp32."""
-    return bias.detach().to(dtype).float().contiguous()
+    return bias.to(dtype).float().contiguous()
 
 
 class ConvBlock(nn.Module):
@@ -87,8 +96,8 @@ class ConvBlock(nn.Module):
         dt = cdt(self.cfg)
         out_c = self.conv.out_channels
         if self.norm is not None:
-            scale = self.norm.weight.detach().float().contiguous()
-            offset = self.norm.bias.detach().float().contiguous()
+            scale = self.norm.weight.float().contiguous()
+            offset = self.norm.bias.float().contiguous()
         else:
             scale = torch.ones(out_c, device=self.conv.weight.device)
             offset = torch.zeros(out_c, device=self.conv.weight.device)

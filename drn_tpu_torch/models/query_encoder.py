@@ -37,6 +37,11 @@ class QueryEncoder(nn.Module):
             [nn.LSTM(i, half, batch_first=True) for i in in_dims])
         self.lstm_bwd = nn.ModuleList(
             [nn.LSTM(i, half, batch_first=True) for i in in_dims])
+        # flax's LSTM cell has one bias per gate: it lives in bias_ih_l0,
+        # and bias_hh_l0 stays a constant (zero from the weight bridge), so
+        # training updates the same parameters as the JAX package.
+        for lstm in (*self.lstm_fwd, *self.lstm_bwd):
+            lstm.bias_hh_l0.requires_grad_(False)
         self.query_proj = nn.ModuleList(
             [nn.Linear(d, d) for _ in range(cfg.num_levels)])
 

@@ -11,16 +11,18 @@ WIO (K, Cin, Cout). The kernel takes bf16 activations and weights and fp32
 bias / scale / offset, accumulates in fp32 and adds the bias to the fp32
 accumulator (the TPU kernel does the same; the JAX package's XLA path
 rounds the conv output to bf16 before its bf16 bias add, which the bf16
-tolerances of the tests absorb). Forward only: the recompute backward
-comes with the training slice.
+tolerances of the tests absorb). The wrapper is forward only and refuses
+an input that needs a gradient; the model reaches it through
+`ops/cuda/autograd.py`, whose backward recomputes through it.
 
 The helpers below (`same_padding`, `layer_norm`, `check_cuda_inputs`,
-`stream_of`) are shared by the other two kernels' modules.
+`check_cout`, `stream_of`, and `conv_vjp`, the conv's VJP for the
+backward passes) are shared by the other kernels' modules.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,12 +84,13 @@ def check_cuda_inputs(name: str, **tensors: Tuple[torch.Tensor, torch.dtype,
         if torch.is_grad_enabled() and t.requires_grad:
             raise RuntimeError(
                 f"{name}: {arg} requires grad; the CUDA kernel is forward "
-                "only (run under torch.no_grad())")
+                "only (call it under torch.no_grad(), or through "
+                "drn_tpu_torch.ops.cuda.autograd)")
 
 
-def check_widths(name: str, cin: int, cout: int) -> None:
-    if cin % 8:
-        raise ValueError(f"{name}: Cin={cin} must be a multiple of 8")
+def check_cout(name: str, cout: int) -> None:
+    """The kernel template is instantiated for these output widths; it
+    takes any input width."""
     if cout not in KERNEL_COUTS:
         raise ValueError(f"{name}: Cout={cout} not in {KERNEL_COUTS}")
 
@@ -115,20 +118,47 @@ def conv_ln_relu_reference(x, w, b, scale, offset, stride: int = 1,
     return acc.to(x.dtype)
 
 
+def conv_vjp(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, stride: int,
+             need_dx: bool = True, need_dw: bool = True
+             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """VJP of the SAME conv y = conv1d(x, w, stride) (x (B, T, Cin), w WIO
+    (K, Cin, Cout), y (B, T_out, Cout)) for dy in y's dtype: (dx, dw) in
+    the dtypes of x and w. One matrix product per tap, fp32 accumulation:
+    dw[i] = Σ x[t·s − left + i]ᵀ dy[t]; dx[t·s − left + i] += dy[t] w[i]ᵀ."""
+    k, cin, cout = w.shape
+    bsz, t, _ = x.shape
+    out_t, left, right = same_padding(t, k, stride)
+    span = (out_t - 1) * stride + 1
+    dy2 = dy.reshape(-1, cout)
+    dx = dw = None
+    if need_dw:
+        xp = F.pad(x, (0, 0, left, right))
+        dw = torch.stack([xp[:, i:i + span:stride].reshape(-1, cin).t()
+                          .matmul(dy2) for i in range(k)]).to(w.dtype)
+    if need_dx:
+        gx = torch.zeros((bsz, t + left + right, cin), dtype=torch.float32,
+                         device=x.device)
+        for i in range(k):
+            gx[:, i:i + span:stride] += dy2.matmul(w[i].t()).reshape(
+                bsz, out_t, cin).float()
+        dx = gx[:, left:left + t].to(x.dtype)
+    return dx, dw
+
+
 def conv_ln_relu(x, w, b, scale, offset, stride: int = 1,
                  use_norm: bool = True, use_act: bool = True):
     """relu(LayerNorm(conv1d(x, w, SAME, stride) + b) · scale + offset).
 
     x: (B, T, Cin); w: (K, Cin, Cout) WIO; b/scale/offset: (Cout,).
     Output (B, ceil(T/stride), Cout) in x.dtype. On CUDA: x and w bf16,
-    b/scale/offset fp32, Cin % 8 == 0, Cout in KERNEL_COUTS.
+    b/scale/offset fp32, Cout in KERNEL_COUTS.
     """
     if x.device.type == "cpu":
         return conv_ln_relu_reference(x, w, b, scale, offset, stride,
                                       use_norm, use_act)
     bsz, t, cin = x.shape
     k, _, cout = w.shape
-    check_widths("conv_ln_relu", cin, cout)
+    check_cout("conv_ln_relu", cout)
     if stride < 1 or k < 1:
         raise ValueError(f"conv_ln_relu: stride={stride}, K={k}")
     check_cuda_inputs(

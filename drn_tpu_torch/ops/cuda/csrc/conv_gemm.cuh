@@ -1,13 +1,20 @@
 // conv1d-as-GEMM with a fused LayerNorm/ReLU epilogue, for sm_90a.
 //
-// One kernel template serves the three TPU kernels of the eval path; they
-// differ only in how a tile of the input is staged (the prologue):
+// One kernel template serves the four TPU kernels of the package; they
+// differ only in how a tile of the input is staged (the prologue) and in
+// which parts of the epilogue run:
 //
 //   kPlain     conv_block.cu   x bf16 as it is
-//   kHadamard  fused_fusion.cu x = v * q[b] (bf16 product), never in HBM
+//   kHadamard  fused_fusion.cu x = v * q[b] (bf16 product), never in HBM;
+//                              with the LN+ReLU epilogue (fused_fusion_block)
+//                              or without it (fused_fusion)
 //   kRowNorm   stem.cu         x = LN(x_fp32) * s_in + b_in cast to bf16,
 //                              never in HBM (row statistics from a first,
 //                              small pass: row_stats_kernel)
+//
+// Any Cin: a row whose width is not a multiple of 8 is staged channel by
+// channel (fetch_a). The backward passes recompute the pre-LayerNorm conv
+// through the same kernels with the epilogue off (use_norm = use_act = 0).
 //
 // Output rows are the flattened (b, t_out) pairs, M = B * T_out; a block
 // owns BM = 32 of them and ALL Cout columns, because the LayerNorm of the
@@ -92,7 +99,7 @@ __device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
 }
 
 // One 8-channel vector of A for row gm (output row), tap, channel c:
-// 16 bytes of bf16, zero outside the input.
+// 16 bytes of bf16, zero outside the input and past Cin.
 template <int PRO>
 __device__ __forceinline__ uint4 fetch_a(const ConvArgs& a, int gm, int tap,
                                          int c) {
@@ -103,6 +110,33 @@ __device__ __forceinline__ uint4 fetch_a(const ConvArgs& a, int gm, int tap,
   const int ts = (gm - b * a.T_out) * a.stride - a.left + tap;
   if (ts < 0 || ts >= a.T) return r;
   const size_t row = static_cast<size_t>(b) * a.T + ts;
+  if (a.Cin & 7) {
+    // Cin % 8 != 0 (activitynet_c3d's 500 features): a row is not 16-byte
+    // aligned and the row's last vector runs past Cin into the next row,
+    // so load channel by channel and zero-fill past Cin. Same arithmetic
+    // as the vector paths below.
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int ch = c + j;
+      f[j] = 0.f;
+      if (ch >= a.Cin) continue;
+      const size_t at = row * a.Cin + ch;
+      if (PRO == kRowNorm) {
+        const float2 st = a.stats[row];
+        f[j] = (static_cast<const float*>(a.x)[at] - st.x) *
+                   (st.y * a.in_scale[ch]) + a.in_bias[ch];
+      } else {
+        f[j] = __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[at]);
+        if (PRO == kHadamard)
+          f[j] *= __bfloat162float(a.q[static_cast<size_t>(b) * a.Cin + ch]);
+      }
+    }
+    uint32_t* rr = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rr[i] = pack_bf16x2(f[2 * i], f[2 * i + 1]);
+    return r;
+  }
   if (PRO == kPlain) {
     r = *reinterpret_cast<const uint4*>(
         static_cast<const __nv_bfloat16*>(a.x) + row * a.Cin + c);
@@ -306,7 +340,7 @@ cudaError_t launch_nf(const ConvArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Cout in {64, 128, 256, 512}; Cin % 8 == 0 (checked by the Python wrapper).
+// Cout in {64, 128, 256, 512} (checked by the Python wrapper); any Cin.
 template <int PRO>
 cudaError_t launch_conv_gemm(const ConvArgs& a, cudaStream_t stream) {
   switch (a.Cout) {

@@ -1,7 +1,8 @@
 // Replaces drn_tpu/ops/pallas/stem.py::fused_stem (Pallas kernel
 // `_stem_kernel`, launched by `_forward`): input LayerNorm over Cin in fp32
 // -> cast to bf16 -> conv1d k Cin->Cout -> bias -> LayerNorm in fp32 ->
-// ReLU. Two launches: row_stats_kernel reads the fp32 features once for
+// ReLU (the output LayerNorm and ReLU can be turned off: the backward pass
+// recomputes the pre-LayerNorm conv). Two launches: row_stats_kernel reads the fp32 features once for
 // the per-(b, t) mean and rstd (8 bytes a row out), then the conv kernel
 // normalises each staged fp32 chunk, applies in_scale / in_bias and casts
 // to bf16 in its prologue (kRowNorm). The normalised copy of the features,
@@ -18,18 +19,28 @@
 
 namespace {
 
-// One warp per row of x (M rows of C fp32 values, C % 4 == 0).
+// One warp per row of x (M rows of C fp32 values): float4 loads when rows
+// are 16-byte aligned (C % 4 == 0), one value at a time otherwise.
 __global__ void row_stats_kernel(const float* __restrict__ x,
                                  float2* __restrict__ stats, int M, int C) {
   const int row = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
-  const float4* p = reinterpret_cast<const float4*>(x + static_cast<size_t>(row) * C);
+  const float* xr = x + static_cast<size_t>(row) * C;
   float s = 0.f, ss = 0.f;
-  for (int i = lane; i < C / 4; i += 32) {
-    const float4 v = p[i];
-    s += (v.x + v.y) + (v.z + v.w);
-    ss += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+  if ((C & 3) == 0) {
+    const float4* p = reinterpret_cast<const float4*>(xr);
+    for (int i = lane; i < C / 4; i += 32) {
+      const float4 v = p[i];
+      s += (v.x + v.y) + (v.z + v.w);
+      ss += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+    }
+  } else {
+    for (int i = lane; i < C; i += 32) {
+      const float v = xr[i];
+      s += v;
+      ss += v * v;
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -50,7 +61,7 @@ extern "C" int drn_fused_stem(const void* x, const void* in_scale,
                               const void* bias, const void* out_scale,
                               const void* out_bias, void* stats, void* out,
                               int B, int T, int Cin, int Cout, int K,
-                              void* stream) {
+                              int use_norm, int use_act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T;
   const int rows_per_block = 8;
@@ -71,6 +82,6 @@ extern "C" int drn_fused_stem(const void* x, const void* in_scale,
   a.offset = static_cast<const float*>(out_bias);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B; a.T = T; a.Cin = Cin; a.Cout = Cout; a.K = K; a.stride = 1;
-  a.T_out = T; a.left = (K - 1) / 2; a.use_norm = 1; a.use_act = 1;
+  a.T_out = T; a.left = (K - 1) / 2; a.use_norm = use_norm; a.use_act = use_act;
   return static_cast<int>(drn::launch_conv_gemm<drn::kRowNorm>(a, st));
 }

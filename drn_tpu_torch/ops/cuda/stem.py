@@ -6,7 +6,9 @@ input LayerNorm over Cin (fp32) → cast to bf16 → conv1d Cin→Cout (K odd)
 normalised copy of the features out of HBM: a first small pass writes each
 row's mean and rstd, and the conv kernel normalises each fp32 chunk as it
 stages it. A CUDA tensor launches the kernel or raises; a CPU tensor takes
-`fused_stem_reference`. Forward only.
+`fused_stem_reference`. The output LayerNorm and ReLU can be turned off
+(`use_norm`, `use_act`): the backward pass (ops/cuda/autograd.py)
+recomputes the pre-LayerNorm conv that way.
 """
 
 from __future__ import annotations
@@ -14,39 +16,40 @@ from __future__ import annotations
 import torch
 
 from drn_tpu_torch.ops.cuda import _build
-from drn_tpu_torch.ops.cuda.conv_block import (check_cuda_inputs,
-                                               check_widths,
+from drn_tpu_torch.ops.cuda.conv_block import (check_cout, check_cuda_inputs,
                                                conv_ln_relu_reference,
                                                layer_norm, stream_of)
 
 
 def fused_stem_reference(x, in_scale, in_bias, w, b, out_scale, out_bias,
-                         cdtype=torch.bfloat16):
+                         cdtype=torch.bfloat16, use_norm: bool = True,
+                         use_act: bool = True):
     """Plain version: flax input LN in fp32, cast to `cdtype`, then the
     conv block's plain version with the weight in `cdtype`."""
     xn = layer_norm(x.float(), in_scale, in_bias).to(cdtype)
     return conv_ln_relu_reference(xn, w.to(cdtype), b, out_scale, out_bias,
-                                  1, True, True)
+                                  1, use_norm, use_act)
 
 
 def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
-               cdtype=torch.bfloat16):
+               cdtype=torch.bfloat16, use_norm: bool = True,
+               use_act: bool = True):
     """relu(LN(conv1d(LN(x)·s_in + b_in, w, SAME) + b)·s_out + b_out).
 
-    x: (B, T, Cin) fp32 features; w: (K, Cin, Cout) WIO, K odd. Output
-    (B, T, Cout) in `cdtype`. On CUDA: cdtype and w bf16, every other
-    input fp32.
+    x: (B, T, Cin) fp32 features, any Cin; w: (K, Cin, Cout) WIO, K odd.
+    Output (B, T, Cout) in `cdtype`. On CUDA: cdtype and w bf16, every
+    other input fp32.
     """
     if x.device.type == "cpu":
         return fused_stem_reference(x, in_scale, in_bias, w, b, out_scale,
-                                    out_bias, cdtype)
+                                    out_bias, cdtype, use_norm, use_act)
     bsz, t, cin = x.shape
     k, _, cout = w.shape
     if k % 2 == 0:
         raise ValueError(f"fused_stem: odd kernel width needed, got {k}")
     if cdtype != torch.bfloat16:
         raise TypeError(f"fused_stem: the kernel computes in bf16, got {cdtype}")
-    check_widths("fused_stem", cin, cout)
+    check_cout("fused_stem", cout)
     check_cuda_inputs(
         "fused_stem",
         x=(x, torch.float32, (None, None, cin)),
@@ -59,11 +62,11 @@ def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
     )
     stats = torch.empty((bsz * t, 2), dtype=torch.float32, device=x.device)
     out = torch.empty((bsz, t, cout), dtype=torch.bfloat16, device=x.device)
-    fn = _build.entry("stem", "drn_fused_stem", 9, 5)
+    fn = _build.entry("stem", "drn_fused_stem", 9, 7)
     rc = fn(x.data_ptr(), in_scale.data_ptr(), in_bias.data_ptr(),
             w.data_ptr(), b.data_ptr(), out_scale.data_ptr(),
             out_bias.data_ptr(), stats.data_ptr(), out.data_ptr(), bsz, t,
-            cin, cout, k, stream_of(x))
+            cin, cout, k, int(use_norm), int(use_act), stream_of(x))
     if rc != 0:
         raise RuntimeError(f"fused_stem: CUDA error {rc} at launch")
     fused_stem.launches += 1

@@ -1,13 +1,16 @@
-"""Where the eval step's time goes on the card.
+"""Where the eval step's (or, with --train, the train step's) time goes on
+the card.
 
     python -m drn_tpu_torch.profile [--config charades_c3d_batched_eval]
-        [--steps 10] [--trace chiprun_out/eval_step_trace.json]
+        [--train] [--steps 10] [--trace profiles/eval_step_trace.json]
 
 Builds the model at the config's full width with seeded weights, takes one
-device-resident batch of the synthetic fixture, and prints one JSON line:
+device-resident batch of the synthetic fixture (eval.batch_size examples,
+or data.batch_size with --train), and prints one JSON line:
 
-  * `step_ms`, `forward_ms`: host clock around synchronised runs of the
-    whole eval step and of the model forward alone (the rest is scoring,
+  * `step_ms`: host clock around synchronised runs of the whole step (a
+    stage-1 train step with --train: forward, loss, backward, optimizer);
+    `forward_ms`, eval only: the model forward alone (the rest is scoring,
     top-k, NMS and recall counts);
   * from a `torch.profiler` trace of `--steps` steps: the device time per
     step of every kernel (the sum, and the union of kernel intervals, whose
@@ -32,11 +35,13 @@ from drn_tpu_torch.config import get_config
 from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
 from drn_tpu_torch.evaluate import (build_model, make_eval_step,
                                     resolve_device, to_device)
+from drn_tpu_torch.train import make_optimizer, make_train_step
 
 OWN_KERNELS = ("conv_gemm_kernel", "row_stats_kernel")
 
 
-def _host_ms(fn, iters: int) -> float:
+def host_ms(fn, iters: int) -> float:
+    """Host clock around `iters` synchronised calls, after 3 warm-ups."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -56,22 +61,28 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile(config: str, steps: int, trace: str | None, top: int = 15):
+def profile(config: str, steps: int, trace: str | None, top: int = 15,
+            train: bool = False):
     dev = resolve_device("cuda")
     base = get_config(config)
+    bsz = base.data.batch_size if train else base.eval.batch_size
     cfg = base.replace(data=dataclasses.replace(
-        base.data, dataset="synthetic",
-        synthetic_examples=base.eval.batch_size))
+        base.data, dataset="synthetic", synthetic_examples=bsz))
     model = build_model(cfg, device=dev, seed=0)
     batch = to_device(next(BatchIterator(
-        make_dataset(cfg.data, cfg.model, split="test"),
-        cfg.eval.batch_size, shuffle=False).epoch(0)), dev)
-    step = make_eval_step(cfg, model)
-    args = (batch["features"], batch["word_ids"], batch["query_mask"])
-
-    step_ms = _host_ms(lambda: step(batch), 20)
-    with torch.no_grad():
-        forward_ms = _host_ms(lambda: model(*args), 20)
+        make_dataset(cfg.data, cfg.model, split="train" if train else "test"),
+        bsz, shuffle=False).epoch(0)), dev)
+    forward_ms = None
+    if train:
+        model.train()
+        step = make_train_step(cfg, model, make_optimizer(cfg, 1, model))
+        step_ms = host_ms(lambda: step(batch), 10)
+    else:
+        step = make_eval_step(cfg, model)
+        args = (batch["features"], batch["word_ids"], batch["query_mask"])
+        step_ms = host_ms(lambda: step(batch), 20)
+        with torch.no_grad():
+            forward_ms = host_ms(lambda: model(*args), 20)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -79,7 +90,8 @@ def profile(config: str, steps: int, trace: str | None, top: int = 15):
         for _ in range(steps):
             step(batch)
         torch.cuda.synchronize()
-    path = Path(trace or "chiprun_out/eval_step_trace.json")
+    path = Path(trace or ("profiles/train_step_trace.json" if train
+                          else "profiles/eval_step_trace.json"))
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -96,8 +108,8 @@ def profile(config: str, steps: int, trace: str | None, top: int = 15):
                  if any(o in k for o in OWN_KERNELS))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {
-        "phase": "profile", "config": cfg.name,
-        "batch_size": cfg.eval.batch_size, "steps": steps,
+        "phase": "profile_train" if train else "profile", "config": cfg.name,
+        "batch_size": bsz, "steps": steps,
         "step_ms": step_ms, "forward_ms": forward_ms,
         "kernels_per_step": len(kernels) / steps,
         "device_kernel_ms_per_step": busy_us / 1e3 / steps,
@@ -114,11 +126,14 @@ def profile(config: str, steps: int, trace: str | None, top: int = 15):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="charades_c3d_batched_eval")
+    p.add_argument("--train", action="store_true",
+                   help="profile the stage-1 train step instead")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--trace", default=None,
-                   help="chrome-trace output (default chiprun_out/...)")
+                   help="chrome-trace output (default profiles/...)")
     args = p.parse_args(argv)
-    print(json.dumps(profile(args.config, args.steps, args.trace)))
+    print(json.dumps(profile(args.config, args.steps, args.trace,
+                             train=args.train)))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,418 @@
+"""Training (port of drn_tpu/train.py): the two-stage recipe on one device.
+
+    python -m drn_tpu_torch.train --config synthetic_tiny --max-steps 3 \\
+        --device cpu --checkpoint-dir /tmp/ckpt
+    python -m drn_tpu_torch.train --config synthetic_tiny --stage 2 \\
+        --init-from /tmp/ckpt/synthetic_tiny/stage1
+
+A step is forward → `drn_loss` → backward through the kernels' autograd
+Functions (ops/cuda/autograd.py) → the optimizer, which reproduces the JAX
+package's optax chain step for step (`Optimizer`). Entry points run on
+`cuda` unless the caller passes `device="cpu"`, as evaluate's do.
+
+Out of scope in this slice, and refused rather than ignored: a device mesh
+and multi-process runs, device-resident feature staging, worker processes
+for IO, GloVe embeddings, TensorBoard, the readers of real datasets, Orbax
+checkpoints and the preemption guard (ROADMAP.md queues each).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from drn_tpu_torch.config import ExperimentConfig, get_config
+from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
+from drn_tpu_torch.evaluate import (_refuse_out_of_scope, build_model,
+                                    evaluate, resolve_device, to_device)
+from drn_tpu_torch.models import DRN
+from drn_tpu_torch.models.losses import drn_loss
+from drn_tpu_torch.utils.checkpoint import (BestCheckpointTracker,
+                                            CheckpointManager,
+                                            check_experiment_config,
+                                            config_parity_diffs,
+                                            load_experiment_config,
+                                            prefer_best_dir,
+                                            save_experiment_config)
+from drn_tpu_torch.utils.logging import MetricLogger
+
+# Parameters that are constants of the model, never trained: the LSTMs'
+# second bias (flax's cell has one bias per gate; see query_encoder.py).
+_CONSTANT_SUFFIX = ".bias_hh_l0"
+
+
+class Optimizer:
+    """The JAX package's `make_optimizer` chain, step for step:
+
+        MultiSteps(every accum_steps,                 # when accum_steps > 1
+          multi_transform(train: chain(clip_by_global_norm(grad_clip_norm),
+                                       adam(w) with schedule),
+                          freeze: set_to_zero))        # stage-2 IoU-only
+
+    over the trained parameters (`params`, parity-schema names); the others
+    are not in it and never change. Adam: b1 0.9, b2 0.999, eps 1e-8, bias
+    correction by the update count; AdamW adds weight_decay · p for every
+    parameter but the embedding. The learning rate is optax's
+    `piecewise_constant_schedule` read at the count of updates applied
+    BEFORE this one, its boundaries `int(epoch · steps_per_epoch /
+    accum_steps)` (at least 1), equal boundaries compounded. Clipping:
+    g · max_norm / ‖g‖ when ‖g‖ ≥ max_norm, ‖g‖ over the trained
+    parameters only. Accumulation: the running mean acc + (g − acc)/(n + 1)
+    of `accum_steps` micro-gradients, one update per cycle."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int,
+                 params: Dict[str, nn.Parameter]):
+        t = cfg.train
+        self.params = params
+        self.base_lr = t.learning_rate
+        self.max_norm = t.grad_clip_norm
+        self.weight_decay = t.weight_decay
+        self.accum = max(t.accum_steps, 1)
+        updates_per_epoch = steps_per_epoch / self.accum
+        self.boundaries: Dict[int, float] = {}
+        for e in t.lr_decay_epochs:
+            b = max(int(e * updates_per_epoch), 1)
+            self.boundaries[b] = self.boundaries.get(b, 1.0) * t.lr_decay_rate
+        self.decayed = {n for n in params
+                        if t.weight_decay > 0 and not n.startswith("embed.")}
+        self.count = 0       # optimizer updates applied
+        self.mini_step = 0   # micro-gradients in the current cycle
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
+        self.mu, self.nu = zeros(), zeros()
+        self.acc = zeros() if self.accum > 1 else None
+        self.last_grad_norm: Optional[torch.Tensor] = None
+
+    def learning_rate(self, count: int) -> float:
+        """optax.piecewise_constant_schedule at `count`, in fp32 as optax
+        computes it."""
+        v = torch.tensor(self.base_lr, dtype=torch.float32)
+        for threshold, scale in sorted(self.boundaries.items()):
+            ind = torch.tensor(float(threshold > count))
+            v = v * ind + (1 - ind) * scale * v
+        return float(v)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Apply the gradients in `.grad` (None counts as zero); True when
+        the parameters were updated, False on an accumulation micro-step.
+        Multi-tensor (`torch._foreach_*`) arithmetic: a few launches for
+        all parameters, no host synchronisation."""
+        names = list(self.params)
+        if not names:
+            return True
+        ps = [self.params[n] for n in names]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in ps]
+        if self.acc is not None:
+            acc = [self.acc[n] for n in names]
+            delta = torch._foreach_sub(grads, acc)
+            torch._foreach_div_(delta, float(self.mini_step + 1))
+            torch._foreach_add_(acc, delta)
+            if self.mini_step < self.accum - 1:
+                self.mini_step += 1
+                return False
+            grads = [a.clone() for a in acc]
+            torch._foreach_zero_(acc)
+            self.mini_step = 0
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        self.last_grad_norm = norm
+        # optax: g unchanged when ‖g‖ < max_norm, else g / ‖g‖ · max_norm.
+        scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
+                            self.max_norm / norm)
+        grads = torch._foreach_mul(grads, scale)  # .grad stays as it was
+        mu = [self.mu[n] for n in names]
+        nu = [self.nu[n] for n in names]
+        torch._foreach_mul_(mu, self.B1)
+        torch._foreach_add_(mu, grads, alpha=1 - self.B1)
+        torch._foreach_mul_(nu, self.B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.B2)
+        count_inc = self.count + 1
+        bc1 = 1.0 - float(torch.tensor(self.B1) ** count_inc)
+        bc2 = 1.0 - float(torch.tensor(self.B2) ** count_inc)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.EPS)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, den)
+        decayed = [i for i, n in enumerate(names) if n in self.decayed]
+        if decayed:
+            torch._foreach_add_([upd[i] for i in decayed],
+                                [ps[i] for i in decayed],
+                                alpha=self.weight_decay)
+        torch._foreach_add_(ps, upd, alpha=-self.learning_rate(self.count))
+        self.count = count_inc
+        return True
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"]),
+                             (self.acc, state["acc"])):
+            if mine is not None:
+                for n, t in mine.items():
+                    t.copy_(theirs[n])
+
+
+def make_optimizer(cfg: ExperimentConfig, steps_per_epoch: int,
+                   model: DRN) -> Optimizer:
+    """The optimizer of `cfg` over `model`'s trained parameters. Stage 2
+    with `stage2_iou_only` trains the IoU head alone: every other parameter
+    gets requires_grad False (so no backward is spent on it) and stays
+    bit-identical."""
+    t = cfg.train
+    iou_only = t.stage >= 2 and t.stage2_iou_only
+    trained = {}
+    for name, p in model.state_dict(keep_vars=True).items():
+        train_it = not name.endswith(_CONSTANT_SUFFIX) and (
+            not iou_only or model.owner(name) == "iou_head")
+        p.requires_grad_(train_it)
+        if train_it:
+            trained[name] = p
+    return Optimizer(cfg, steps_per_epoch, trained)
+
+
+def loss_and_grads(cfg: ExperimentConfig, model: DRN,
+                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Forward, `drn_loss`, backward: every trained parameter's `.grad`
+    holds its gradient afterwards. Returns the loss metrics as device
+    tensors."""
+    for p in model.parameters():
+        p.grad = None
+    out = model(batch["features"], batch["word_ids"], batch["query_mask"])
+    loss, metrics = drn_loss(cfg.model, cfg.train, out, model.locations,
+                             model.level_ids, batch["gt_grid"],
+                             cfg.data.num_clips, batch["valid"])
+    loss.backward()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ExperimentConfig, model: DRN, optimizer: Optimizer
+                    ) -> Callable[[Dict[str, torch.Tensor]],
+                                  Dict[str, torch.Tensor]]:
+    """step(batch of device tensors) → loss metrics (device tensors); the
+    model's parameters and the optimizer's state are updated in place."""
+
+    def step(batch):
+        metrics = loss_and_grads(cfg, model, batch)
+        optimizer.step()
+        return metrics
+
+    return step
+
+
+def selection_metric(results: Optional[Dict[str, float]]) -> Optional[float]:
+    """Best-on-val scalar: R@1,IoU=0.5, else the mean of the R@1 rows,
+    else of all."""
+    if not results:
+        return None
+    if "R@1,IoU=0.5" in results:
+        return float(results["R@1,IoU=0.5"])
+    r1 = [v for k, v in results.items() if k.startswith("R@1")]
+    return float(np.mean(r1 if r1 else list(results.values())))
+
+
+def _default_eval_fn(cfg: ExperimentConfig, device):
+    """Periodic eval on the val split (test when there is none), or None
+    when neither can be read. A split-less annotation path would score
+    the training annotations, so it disables periodic eval."""
+    ann = cfg.data.annotation_path
+    if ann and "{split}" not in ann:
+        print(f"[train] annotation_path {ann!r} has no '{{split}}' "
+              "placeholder; skipping in-training eval", flush=True)
+        return None
+    dataset = None
+    for split in [cfg.data.val_split] if cfg.data.val_split else ["val", "test"]:
+        try:
+            dataset = make_dataset(cfg.data, cfg.model, split=split)
+            break
+        except FileNotFoundError:
+            continue
+        except (KeyError, ValueError) as e:
+            print(f"[train] WARNING: {split!r} annotations are unreadable "
+                  f"({type(e).__name__}: {e}); skipping this split for "
+                  "in-training eval", flush=True)
+    if dataset is None:
+        return None
+    log = MetricLogger(f"eval/{cfg.name}")
+
+    def fn(model, epoch):
+        results = evaluate(cfg, model, dataset, device=device)
+        log.log(epoch, results)
+        return selection_metric(results)
+
+    return fn
+
+
+def _refuse_train_out_of_scope(cfg: ExperimentConfig, mesh,
+                               device_features) -> None:
+    _refuse_out_of_scope(cfg, mesh, device_features)
+    if cfg.data.glove_path:
+        raise NotImplementedError("data.glove_path: GloVe embeddings (and "
+                                  "their freeze) are not ported yet "
+                                  "(ROADMAP.md)")
+    if cfg.train.tensorboard_dir:
+        raise NotImplementedError("train.tensorboard_dir: the port logs "
+                                  "JSON lines to stderr only")
+
+
+def train(cfg: ExperimentConfig, *, device=None,
+          init_from: Optional[str] = None, max_steps: Optional[int] = None,
+          eval_fn=None, allow_config_mismatch: bool = False,
+          run_info: Optional[dict] = None, mesh=None,
+          device_features: bool = False) -> DRN:
+    """A full training run on `device` (cuda by default); returns the
+    trained model. `run_info` (a caller's dict) receives `start_step`, the
+    step the run began from after any restore, and `step`, where it ended.
+    `eval_fn(model, epoch)` → selection metric or None replaces the
+    periodic val-split eval."""
+    _refuse_train_out_of_scope(cfg, mesh, device_features)
+    dev = resolve_device(device)
+    tc = cfg.train
+    log = MetricLogger(f"train/{cfg.name}/stage{tc.stage}")
+    dataset = make_dataset(cfg.data, cfg.model, split="train")
+    batches = BatchIterator(dataset, cfg.data.batch_size, shuffle=True,
+                            seed=tc.seed)
+    steps_per_epoch = len(batches)
+    model = build_model(cfg, device=dev, seed=tc.seed)
+
+    ckpt_dir = os.path.join(tc.checkpoint_dir, cfg.name, f"stage{tc.stage}")
+    ckpt = CheckpointManager(ckpt_dir, keep=tc.keep_checkpoints,
+                             save_interval_steps=tc.checkpoint_every_steps)
+    if init_from:  # stage 2 starts from stage 1's params (best-on-val if kept)
+        check_experiment_config(init_from, cfg, context="--init-from",
+                                allow_mismatch=allow_config_mismatch)
+        restored = CheckpointManager(prefer_best_dir(init_from)).restore()
+        if restored is not None:
+            model.load_state_dict(restored["model"])
+    optimizer = make_optimizer(cfg, steps_per_epoch, model)
+    start_step = 0
+    if tc.resume:
+        check_experiment_config(ckpt_dir, cfg, context="resume",
+                                allow_mismatch=allow_config_mismatch)
+        restored = ckpt.restore()
+        if restored is not None:
+            model.load_state_dict(restored["model"])
+            optimizer.load_state_dict(restored["optimizer"])
+            start_step = int(restored["step"])
+    else:
+        stale = load_experiment_config(ckpt_dir)
+        if stale is not None and config_parity_diffs(stale, cfg):
+            print(f"[train] WARNING: {ckpt_dir!r} holds the provenance of a "
+                  f"parity-different config ({stale.get('name', '?')!r}); "
+                  "overwriting it. Its checkpoints belong to the old config.",
+                  flush=True)
+    save_experiment_config(ckpt_dir, cfg)
+    if run_info is not None:
+        run_info["start_step"] = start_step
+
+    if eval_fn is None:
+        eval_fn = _default_eval_fn(cfg, dev)
+    best: Optional[BestCheckpointTracker] = None
+    train_step = make_train_step(cfg, model, optimizer)
+
+    def state(step):
+        return {"model": model.state_dict(), "optimizer":
+                optimizer.state_dict(), "step": step}
+
+    step, done = 0, False
+    for epoch in range(tc.num_epochs):
+        if done:
+            break
+        if (epoch + 1) * steps_per_epoch <= start_step:
+            step = (epoch + 1) * steps_per_epoch  # covered by the restore
+            continue
+        skip = max(start_step - step, 0)  # mid-epoch resume point
+        step += skip
+        model.train()  # cuDNN's LSTM backward runs in training mode only
+        for batch in batches.epoch(epoch, skip_batches=skip):
+            metrics = train_step(to_device(batch, dev))
+            step += 1
+            if step % tc.log_every_steps == 0 or step == 1:
+                log.log(step, {"epoch": epoch, **metrics})
+            if ckpt.should_save(step):
+                ckpt.save(step, state(step))
+            if max_steps is not None and step >= max_steps:
+                done = True
+                break
+        if (eval_fn is not None and not done and tc.eval_every_epochs > 0
+                and (epoch + 1) % tc.eval_every_epochs == 0):
+            val = eval_fn(model, epoch)
+            if val is not None:
+                best = best or BestCheckpointTracker(ckpt_dir)
+                if best.update(step, model.state_dict(), val):
+                    log.log(step, {"epoch": epoch, "best_val_metric": val})
+    ckpt.save(step, state(step), force=True)
+    if run_info is not None:
+        run_info["step"] = step
+    return model
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="drn_tpu_torch trainer")
+    p.add_argument("--config", default="charades_c3d")
+    p.add_argument("--stage", type=int, default=None)
+    p.add_argument("--stage2-iou-only", action="store_true",
+                   help="stage 2: train only the IoU head (the config "
+                        "default)")
+    p.add_argument("--stage2-joint", action="store_true",
+                   help="stage 2: fine-tune the whole network")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--accum-steps", type=int, default=None,
+                   help="average this many micro-batch gradients per "
+                        "optimizer update (--max-steps, checkpoints and "
+                        "logging count micro-steps)")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--init-from", default=None,
+                   help="stage-1 checkpoint directory for stage-2 init")
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--allow-config-mismatch", action="store_true",
+                   help="downgrade the checkpoint-vs-active config check "
+                        "(resume / --init-from) to a warning")
+    p.add_argument("--device", default=None,
+                   help="torch device; cuda when omitted")
+    args = p.parse_args(argv)
+
+    cfg = get_config(args.config)
+    tr, da = {}, {}
+    if args.stage is not None:
+        tr["stage"] = args.stage
+    if args.stage2_iou_only and args.stage2_joint:
+        p.error("--stage2-iou-only and --stage2-joint are mutually exclusive")
+    if args.stage2_iou_only:
+        tr["stage2_iou_only"] = True
+        if tr.get("stage", cfg.train.stage) < 2:
+            p.error("--stage2-iou-only requires --stage 2 (the freeze only "
+                    "applies to stage-2 training)")
+    if args.stage2_joint:
+        tr["stage2_iou_only"] = False
+    for flag, key in (("accum_steps", "accum_steps"), ("epochs", "num_epochs"),
+                      ("lr", "learning_rate"),
+                      ("checkpoint_dir", "checkpoint_dir")):
+        if getattr(args, flag) is not None:
+            tr[key] = getattr(args, flag)
+    if args.batch_size is not None:
+        da["batch_size"] = args.batch_size
+    if tr:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))
+    if da:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, **da))
+    train(cfg, device=args.device, init_from=args.init_from,
+          max_steps=args.max_steps,
+          allow_config_mismatch=args.allow_config_mismatch)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,7 @@ rounded to bf16 before a bf16 bias add on the JAX side: 1/16 absolute
 + 1/32 relative.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,3 +152,161 @@ def test_same_padding_matches_xla(t, k, stride):
     xp = np.pad(x[0, :, 0], (left, right))
     np.testing.assert_array_equal(np.asarray(want)[0, :, 0],
                                   xp[0:(out_t - 1) * stride + 1:stride])
+
+
+# --- fused_fusion and the gradients of the four kernels ------------------
+#
+# Gradients: the port's autograd Functions (ops/cuda/autograd.py) on CPU
+# tensors, where their wrappers run the plain versions, against jax.vjp of
+# the Pallas functions, whose custom VJPs run unchanged on the CPU. fp32:
+# 1e-4 (summation order only). bf16: the cotangent is rounded to bf16 where
+# each side's forward rounds, but the two sides round their products and
+# sums at other places, so each gradient is held by its relative L2 error,
+# ≤ 5e-2: the JAX side sums a bf16 bias's gradient in bf16 over the B·T
+# rows (about √n·2^-9 relative, 2% at n = 116 rows), the port in fp32.
+
+from drn_tpu_torch.ops.cuda.autograd import (ConvLnReluFn,  # noqa: E402
+                                             FusedFusionBlockFn,
+                                             FusedFusionFn, FusedStemFn)
+from drn_tpu_torch.ops.cuda.fused_fusion import (  # noqa: E402
+    fused_fusion, fused_fusion_backward)
+
+GRAD_REL_BF16 = 5e-2
+
+
+def _grad_close(got, want, dtype):
+    got = got.detach().float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        err = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+        assert err <= GRAD_REL_BF16, err
+
+
+def _port_grads(fn, args, g):
+    """Run autograd Function `fn` on `args` (tensors get requires_grad)
+    and back-propagate `g`: (output, grads of the tensor args)."""
+    leaves = [a.detach().clone().requires_grad_() if
+              isinstance(a, torch.Tensor) else a for a in args]
+    out = fn.apply(*leaves)
+    out.backward(g)
+    return out, [a.grad for a in leaves if isinstance(a, torch.Tensor)]
+
+
+def _fusion_inputs(t, dtype, seed=1):
+    jdt, tdt = DTYPES[dtype][:2]
+    p = _np_inputs(t=t)
+    q = np.random.default_rng(seed).normal(size=(4, 128)).astype(np.float32)
+    g = np.random.default_rng(seed + 1).normal(size=(4, t, 128)).astype(
+        np.float32)
+    jargs = (_jax(p["x"], jdt), _jax(q, jdt), _jax(p["w"], jdt),
+             _jax(p["b"], jdt))
+    targs = (_torch(p["x"], tdt), _torch(q, tdt), _torch(p["w"], tdt),
+             _bias(p["b"], tdt))
+    return p, jargs, targs, (_jax(g, jdt), _torch(g, tdt))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t", [32, 57])
+def test_fused_fusion_plain_matches_pallas(dtype, t):
+    _, atol, rtol, xatol, xrtol = DTYPES[dtype][1:]
+    _, jargs, targs, _ = _fusion_inputs(t, dtype)
+    want = pl_fusion.fused_fusion(*jargs)
+    ref = pl_fusion.xla_reference(*jargs)
+    before = launch_counts()
+    got = fused_fusion(*targs)
+    assert launch_counts() == before
+    assert got.dtype == targs[0].dtype and tuple(got.shape) == want.shape
+    _close(got, want, atol, rtol)
+    _close(got, ref, xatol, xrtol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fused_fusion_backward_matches_its_custom_vjp(dtype):
+    """The port's `fused_fusion_backward` against the JAX package's
+    hand-written `_bwd`, reached through jax.vjp of `fused_fusion`."""
+    _, jargs, targs, (jg, tg) = _fusion_inputs(32, dtype)
+    _, vjp = jax.vjp(pl_fusion.fused_fusion, *jargs)
+    want = vjp(jg)
+    got = fused_fusion_backward(tg, *targs[:3])
+    for name, gt, wt, arg in zip(("dv", "dq", "dw", "db"), got, want,
+                                 (*targs[:3], tg)):
+        assert gt.dtype == arg.dtype, name
+        _grad_close(gt, wt, dtype)
+    _, grads = _port_grads(FusedFusionFn, targs, tg)
+    for gt, wt in zip(grads, want):
+        _grad_close(gt, wt, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k,stride,t,use_norm,use_act", [
+    (3, 1, 32, True, True),
+    (3, 2, 32, True, True),    # the strided level blocks
+    (3, 2, 57, True, True),    # odd T: XLA's SAME pads left 1, right 1
+    (1, 1, 32, True, False),   # the FPN laterals
+    (1, 2, 32, False, True),
+])
+def test_conv_ln_relu_gradients_match_jax(dtype, k, stride, t, use_norm,
+                                          use_act):
+    jdt, tdt = DTYPES[dtype][:2]
+    p = _np_inputs(t=t, k=k)
+    out_t = same_padding(t, k, stride)[0]
+    g = np.random.default_rng(7).normal(size=(4, out_t, 128)).astype(
+        np.float32)
+    jargs = (_jax(p["x"], jdt), _jax(p["w"], jdt), _jax(p["b"], jdt),
+             _jax(p["scale"], jnp.float32), _jax(p["offset"], jnp.float32))
+    _, vjp = jax.vjp(lambda *a: pl_conv.conv_ln_relu(*a, stride, use_norm,
+                                                     use_act), *jargs)
+    want = vjp(_jax(g, jdt))
+    targs = (_torch(p["x"], tdt), _torch(p["w"], tdt), _bias(p["b"], tdt),
+             _torch(p["scale"], torch.float32),
+             _torch(p["offset"], torch.float32), stride, use_norm, use_act)
+    _, grads = _port_grads(ConvLnReluFn, targs, _torch(g, tdt))
+    for i, (gt, wt) in enumerate(zip(grads, want)):
+        if not use_norm and i >= 3:  # scale and offset are not used
+            assert gt is None or not gt.any()
+            continue
+        _grad_close(gt, wt, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fused_fusion_block_gradients_match_jax(dtype):
+    jdt, tdt = DTYPES[dtype][:2]
+    p, jargs, targs, (jg, tg) = _fusion_inputs(32, dtype)
+    epi = (p["scale"], p["offset"])
+    _, vjp = jax.vjp(pl_fusion.fused_fusion_block, *jargs,
+                     *(_jax(a, jnp.float32) for a in epi))
+    want = vjp(jg)
+    _, grads = _port_grads(FusedFusionBlockFn,
+                           (*targs, *(_torch(a, torch.float32) for a in epi)),
+                           tg)
+    for gt, wt in zip(grads, want):
+        _grad_close(gt, wt, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fused_stem_gradients_match_jax(dtype):
+    jdt, tdt = DTYPES[dtype][:2]
+    rng = np.random.default_rng(3)
+    f32 = lambda a: np.asarray(a, np.float32)
+    cin = 100  # any width: activitynet_c3d's features are 500 wide
+    x = f32(rng.normal(size=(4, 16, cin)) * 3.0 + 0.5)
+    args = [x, f32(rng.normal(size=(cin,)) * 0.2 + 1.0),
+            f32(rng.normal(size=(cin,)) * 0.1),
+            f32(rng.normal(size=(3, cin, 128)) * 0.05),
+            f32(rng.normal(size=(128,)) * 0.1),
+            f32(rng.normal(size=(128,)) * 0.2 + 1.0),
+            f32(rng.normal(size=(128,)) * 0.1)]
+    g = f32(rng.normal(size=(4, 16, 128)))
+    _, vjp = jax.vjp(lambda *a: pl_stem.fused_stem(*a, jdt),
+                     *(jnp.asarray(a) for a in args))
+    want = vjp(_jax(g, jdt))
+    t = torch.from_numpy
+    targs = [t(a) for a in args]
+    targs[3] = targs[3].to(tdt)
+    targs[4] = _bias(args[4], tdt)
+    _, grads = _port_grads(FusedStemFn, (*targs, tdt), _torch(g, tdt))
+    for gt, wt in zip(grads, want):
+        _grad_close(gt, wt, dtype)
