@@ -21,7 +21,10 @@ non-zero exit code:
               F=4096, T=64, 3 levels) on the synthetic fixture, 3 batches of
               48 (the last one ragged); the launch counts of that run; the
               same forward with the kernels' plain versions compared; the
-              eval step's queries/s.
+              eval step's queries/s, its matmul + conv FLOPs
+              (`utils.flops.estimate_flops`, equal through the kernels and
+              through the plain versions) and its share of the card's
+              bf16 peak (mfu).
   4. train    the two-stage trainer at the same width with its training
               batch (data.batch_size=384) on one device-resident batch of
               the fixture: 5 stage-1 steps through `make_train_step` (finite,
@@ -29,11 +32,19 @@ non-zero exit code:
               step's loss and every parameter gradient against the same
               step through the kernels' plain versions with autograd; one
               stage-2 (IoU head only) step that moves the IoU head alone;
-              the step's time and examples/s, kernels and plain.
+              the step's time and examples/s, kernels and plain; its FLOPs
+              and mfu.
+  5. probe    the measurement probe `drn_tpu_torch.probes.pallas_block_probe`
+              at its shapes (B=256, T=64, D=512, K=3) with the launch count
+              of that run: `pallas_block` against the probe's `xla_block`,
+              and the times of the kernel, its plain version and the
+              library yardstick (cuDNN conv + layer_norm + ReLU); then the
+              kernel against its plain version at K=3 and at K=4 (B=32).
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its launches from the `main` run, `fused_fusion`'s from the
-`train` run), and last {"ok": true, "device": {...}}.
+`train` run, `pallas_block`'s from the `probe` run), and last {"ok": true,
+"device": {...}}.
 
 Without a CUDA device, or run in a directory without the package, it exits
 non-zero and prints no result. It imports nothing of JAX nor of `drn_tpu`.
@@ -88,36 +99,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    """Device time of one `fn()`: a CUDA graph of `iters` back-to-back
-    calls, replayed `reps` times between CUDA events; the median replay
-    over `iters`. (The graph keeps host overhead out of the number.)"""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    del graph
-    return sorted(times)[len(times) // 2]
-
-
 def flagship_conv_sites(cfg):
     """(site, T_in, Cin, K, stride, use_norm, use_act) of every conv_ln_relu
     launch of one eval step, in model order."""
@@ -158,6 +139,7 @@ def kernel_phase(cfg, dev):
     import torch.nn.functional as F
 
     from drn_tpu_torch.ops.cuda import conv_block, fused_fusion, stem
+    from drn_tpu_torch.utils.profiling import cuda_time_ms
 
     d, kf = cfg.model.hidden_dim, cfg.model.fusion_kernel_size
     t0, fdim = cfg.data.num_clips, cfg.model.feature_dim
@@ -298,7 +280,8 @@ def main_path_phase(cfg, dev):
     from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
     from drn_tpu_torch.models.layers import PLAIN_OPS
     from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-    from drn_tpu_torch.profile import host_ms
+    from drn_tpu_torch.utils.flops import estimate_flops
+    from drn_tpu_torch.utils.profiling import host_ms
 
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=0)
@@ -309,7 +292,7 @@ def main_path_phase(cfg, dev):
     m = cfg.model
     per_step = {"fused_stem": 1, "fused_fusion_block": m.num_levels,
                 "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
-                + m.iou_head_layers, "fused_fusion": 0}
+                + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0}
     reset_launch_counts()
     t0 = time.perf_counter()
     metrics = evaluate(cfg, model, dataset, device=dev)
@@ -347,13 +330,22 @@ def main_path_phase(cfg, dev):
     step_ms = host_ms(lambda: step(batch), 20)
     plain_step_ms = host_ms(lambda: plain_step(batch), 20)
     b = cfg.eval.batch_size
+
+    # Matmul + conv FLOPs of one eval step: the kernels report theirs, the
+    # plain versions' products are counted by the mode; the two must agree.
+    flops, plain_flops = estimate_flops(step, batch), estimate_flops(
+        plain_step, batch)
+    if flops != plain_flops or not flops > 0:
+        raise AssertionError(f"eval step FLOPs through the kernels {flops} "
+                             f"vs the plain versions {plain_flops}")
     return launches, dict(
         phase="main", config=cfg.name, dataset="synthetic", examples=len(dataset),
         steps=steps, batch_size=b, launches=launches, metrics=metrics,
         max_abs_err_vs_plain=errors, setup_s=setup_s, evaluate_s=eval_s,
         evaluate_qps=len(dataset) / eval_s, step_ms=step_ms,
         step_qps=b / (step_ms / 1e3), plain_step_ms=plain_step_ms,
-        plain_step_qps=b / (plain_step_ms / 1e3),
+        plain_step_qps=b / (plain_step_ms / 1e3), flops_per_step=flops,
+        mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
         device=torch.cuda.get_device_name(0))
 
 
@@ -367,7 +359,8 @@ def train_phase(cfg, dev):
     from drn_tpu_torch.evaluate import build_model, to_device
     from drn_tpu_torch.models.layers import PLAIN_OPS
     from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-    from drn_tpu_torch.profile import host_ms
+    from drn_tpu_torch.utils.flops import estimate_flops
+    from drn_tpu_torch.utils.profiling import host_ms
     from drn_tpu_torch.train import (loss_and_grads, make_optimizer,
                                      make_train_step)
 
@@ -387,7 +380,7 @@ def train_phase(cfg, dev):
     blocks = 3 * m.num_levels + 2 * m.head_tower_layers + m.iou_head_layers
     per_step = {"fused_stem": 2, "fused_fusion_block": m.num_levels,
                 "conv_ln_relu": 2 * blocks + m.num_levels,
-                "fused_fusion": m.num_levels}
+                "fused_fusion": m.num_levels, "pallas_block": 0}
     reset_launch_counts()
     losses = [step(batch)["loss"].item() for _ in range(TRAIN_STEPS)]
     launches = launch_counts()
@@ -420,6 +413,9 @@ def train_phase(cfg, dev):
         raise AssertionError(f"gradient of {worst}: relative L2 error "
                              f"{grad_err[worst]:.4g} over {TRAIN_GRAD_REL}")
 
+    # One step's matmul + conv FLOPs: forward, the backward's recomputes
+    # and conv VJPs, the LSTM's forward and backward (one more step taken).
+    flops = estimate_flops(step, batch)
     step_ms = host_ms(lambda: step(batch), TRAIN_STEPS)
     plain_step = make_train_step(cfg, plain, make_optimizer(cfg, 1, plain))
     plain_step_ms = host_ms(lambda: plain_step(batch), 3)
@@ -443,11 +439,59 @@ def train_phase(cfg, dev):
         max_grad_rel_err={"param": worst, "err": grad_err[worst]},
         median_grad_rel_err=sorted(grad_err.values())[len(grad_err) // 2],
         step_ms=step_ms, examples_per_s=TRAIN_BATCH / (step_ms / 1e3),
+        flops_per_step=flops, mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
         plain_step_ms=plain_step_ms,
         plain_examples_per_s=TRAIN_BATCH / (plain_step_ms / 1e3),
         stage2_loss=stage2_loss, stage2_moved=moved,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         device=torch.cuda.get_device_name(0))
+
+
+def probe_phase(dev):
+    """The measurement probe (`drn_tpu_torch.probes.pallas_block_probe`)
+    at its shapes, with the launch counts of that run; then the kernel
+    against its plain version at the probe's K=3 and at an even K (4, one
+    row further left than SAME), which no other kernel takes."""
+    import torch
+
+    from drn_tpu_torch.ops.cuda import (launch_counts, pallas_block,
+                                        pallas_block_reference,
+                                        reset_launch_counts)
+    from drn_tpu_torch.probes import pallas_block_probe as probe
+
+    reset_launch_counts()
+    res = probe.run(dev)
+    launches = launch_counts()
+    if not launches["pallas_block"] or any(
+            n for k, n in launches.items() if k != "pallas_block"):
+        raise AssertionError(f"probe launch counts {launches}")
+
+    errors = {}
+    for b, k in ((probe.B, probe.K), (32, 4)):
+        args = probe.make_inputs(b, probe.T, probe.D, k, dev, seed=1)
+        with torch.no_grad():
+            got, want = pallas_block(*args).float(), \
+                pallas_block_reference(*args).float()
+            torch.cuda.synchronize()
+        err = (got - want).abs()
+        errors[f"B={b},K={k}"] = err.max().item()
+        if not bool((err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()).all()):
+            raise AssertionError(f"pallas_block B={b} K={k}: max |kernel - "
+                                 f"plain| {err.max().item():.4g} over the "
+                                 f"bf16 tolerance")
+    b, t, d, k = probe.B, probe.T, probe.D, probe.K
+    flops = 2 * b * t * k * d * d
+    nbytes = 2 * (2 * b * t * d + b * d + k * d * d + d) + 8 * d
+    bms, by = bound(flops, nbytes)
+    return launches, dict(
+        phase="probe", shape=dict(B=b, T=t, D=d, K=k),
+        launches=launches["pallas_block"],
+        max_abs_err_vs_plain=errors,
+        max_abs_err_vs_xla_block=res["max_abs_err_vs_xla_block"],
+        ms=res["ms"], plain_ms=res["plain_ms"],
+        xla_block_ms=res["xla_block_ms"], library_ms=res["library_ms"],
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        device=res["device"])
 
 
 def main() -> int:
@@ -484,9 +528,13 @@ def main() -> int:
         synthetic_examples=TRAIN_BATCH))
     train_launches, train_line = train_phase(train_cfg, dev)
     emit(train_line)
+    probe_launches, probe_line = probe_phase(dev)
+    emit(probe_line)
     # Each kernel's launches on its main path: the eval step's kernels in
-    # the `main` run, `fused_fusion` (backward only) in the `train` run.
+    # the `main` run, `fused_fusion` (backward only) in the `train` run,
+    # `pallas_block` in the `probe` run.
     launches["fused_fusion"] = train_launches["fused_fusion"]
+    launches["pallas_block"] = probe_launches["pallas_block"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -503,12 +551,22 @@ def main() -> int:
                          "drn_tpu/ops/pallas/conv_block.py:100"),
         "fused_fusion": ("drn_tpu_torch/ops/cuda/csrc/fused_fusion.cu",
                          "drn_tpu/ops/pallas/fused_fusion.py:61"),
+        "pallas_block": ("drn_tpu_torch/ops/cuda/csrc/block_probe.cu",
+                         "scripts/pallas_block_probe.py:52"),
     }
+    # `pallas_block` at the probe's one shape, its own path.
+    totals["probe", "pallas_block"] = Counter(
+        max_abs_err=max(probe_line["max_abs_err_vs_plain"].values()),
+        **{k: probe_line[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms")},
+        **{"bound_" + probe_line["bound_by"]: probe_line["bound_ms"]})
+    # Per eval step for the eval path's kernels (their first slice), per
+    # train step for `fused_fusion`, which runs only there, per call at the
+    # probe's shape for `pallas_block`.
+    path = {"fused_fusion": "train", "pallas_block": "probe"}
     kernels = []
     for name, (source, replaces) in where.items():
-        # Per eval step for the eval path's kernels (their first slice),
-        # per train step for `fused_fusion`, which runs only there.
-        tot = totals["train" if name == "fused_fusion" else "eval", name]
+        tot = totals[path.get(name, "eval"), name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

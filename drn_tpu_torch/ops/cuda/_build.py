@@ -27,7 +27,7 @@ CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("conv_block", "fused_fusion", "stem")
+SOURCES = ("conv_block", "fused_fusion", "stem", "block_probe")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -93,11 +93,13 @@ def build_all(names: List[str] | tuple = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def entry(source: str, symbol: str, n_ptr: int, n_int: int):
+def entry(source: str, symbol: str, n_ptr: int, n_int: int,
+          n_float: int = 0):
     """C entry point `symbol` of `csrc/<source>.cu`, built first if its
-    library is missing. Its arguments: `n_ptr` pointers, `n_int` ints, then
-    the stream; pointers and stream as c_void_p (a plain int would be cut
-    to 32 bits). It returns cudaGetLastError() as an int."""
+    library is missing. Its arguments: `n_ptr` pointers, `n_int` ints,
+    `n_float` floats, then the stream; pointers and stream as c_void_p (a
+    plain int would be cut to 32 bits). It returns cudaGetLastError() as an
+    int."""
     lib = _LIBS.get(source)
     if lib is None:
         if not _lib_path(source).exists():
@@ -106,6 +108,6 @@ def entry(source: str, symbol: str, n_ptr: int, n_int: int):
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

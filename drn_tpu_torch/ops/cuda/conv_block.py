@@ -15,9 +15,11 @@ tolerances of the tests absorb). The wrapper is forward only and refuses
 an input that needs a gradient; the model reaches it through
 `ops/cuda/autograd.py`, whose backward recomputes through it.
 
-The helpers below (`same_padding`, `layer_norm`, `check_cuda_inputs`,
-`check_cout`, `stream_of`, and `conv_vjp`, the conv's VJP for the
-backward passes) are shared by the other kernels' modules.
+The helpers below (`same_padding`, `layer_norm`, `conv_taps`,
+`check_cuda_inputs`, `check_cout`, `stream_of`, and `conv_vjp`, the
+conv's VJP for the backward passes) are shared by the other kernels'
+modules. Each wrapper reports its conv's FLOPs where it launches
+(`utils.flops.add_conv`): `estimate_flops` cannot see a ctypes launch.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from drn_tpu_torch.ops.cuda import _build
+from drn_tpu_torch.utils import flops
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 KERNEL_COUTS = (64, 128, 256, 512)  # instantiated in csrc/conv_gemm.cuh
@@ -95,22 +98,28 @@ def check_cout(name: str, cout: int) -> None:
         raise ValueError(f"{name}: Cout={cout} not in {KERNEL_COUTS}")
 
 
+def conv_taps(x, w, out_t: int, left: int, stride: int = 1):
+    """Σ_i x[t·stride − left + i] @ w[i] over the K taps, x zero outside
+    [0, T): K shifted (B, out_t, Cin) @ (Cin, Cout) products accumulated in
+    fp32 → (B, out_t, Cout) fp32."""
+    k, t = w.shape[0], x.shape[1]
+    span = (out_t - 1) * stride + 1
+    xp = F.pad(x.float(), (0, 0, left, max(span + k - 1 - left - t, 0)))
+    acc = None
+    for i in range(k):
+        y = xp[:, i:i + span:stride] @ w[i].float()
+        acc = y if acc is None else acc + y
+    return acc
+
+
 def conv_ln_relu_reference(x, w, b, scale, offset, stride: int = 1,
                            use_norm: bool = True, use_act: bool = True):
     """Plain PyTorch version of the kernel, with its arithmetic: K shifted
     (B, T_out, Cin) @ (Cin, Cout) products accumulated in fp32 over
     SAME-padded taps, + b in fp32, optional flax LayerNorm in fp32,
     optional ReLU, output in x.dtype."""
-    k = w.shape[0]
-    t = x.shape[1]
-    out_t, left, right = same_padding(t, k, stride)
-    xp = F.pad(x.float(), (0, 0, left, right))
-    span = (out_t - 1) * stride + 1
-    acc = None
-    for i in range(k):
-        y = xp[:, i:i + span:stride] @ w[i].float()
-        acc = y if acc is None else acc + y
-    acc = acc + b.float()
+    out_t, left, _ = same_padding(x.shape[1], w.shape[0], stride)
+    acc = conv_taps(x, w, out_t, left, stride) + b.float()
     if use_norm:
         acc = layer_norm(acc, scale, offset)
     if use_act:
@@ -179,6 +188,7 @@ def conv_ln_relu(x, w, b, scale, offset, stride: int = 1,
     if rc != 0:
         raise RuntimeError(f"conv_ln_relu: CUDA error {rc} at launch")
     conv_ln_relu.launches += 1
+    flops.add_conv(bsz, out_t, cin, cout, k)
     return out
 
 

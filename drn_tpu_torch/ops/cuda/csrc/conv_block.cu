@@ -21,6 +21,7 @@ extern "C" int drn_conv_ln_relu(const void* x, const void* w, const void* bias,
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B; a.T = T; a.Cin = Cin; a.Cout = Cout; a.K = K; a.stride = stride;
   a.T_out = T_out; a.left = left; a.use_norm = use_norm; a.use_act = use_act;
+  a.eps = drn::kLnEps;
   return static_cast<int>(drn::launch_conv_gemm<drn::kPlain>(
       a, static_cast<cudaStream_t>(stream)));
 }

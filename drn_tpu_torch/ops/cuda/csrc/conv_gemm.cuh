@@ -8,6 +8,8 @@
 //   kHadamard  fused_fusion.cu x = v * q[b] (bf16 product), never in HBM;
 //                              with the LN+ReLU epilogue (fused_fusion_block)
 //                              or without it (fused_fusion)
+//              block_probe.cu  the same block as the measurement probe's
+//                              kernel: bf16 bias, its own eps, left pad K/2
 //   kRowNorm   stem.cu         x = LN(x_fp32) * s_in + b_in cast to bf16,
 //                              never in HBM (row statistics from a first,
 //                              small pass: row_stats_kernel)
@@ -29,9 +31,10 @@
 // each 16 rows x Cout/4 columns of the fp32 accumulator.
 //
 // Epilogue: accumulator -> shared memory (fp32), then one warp per row:
-// + bias (fp32), LayerNorm in fp32 (eps 1e-6, var = E[x^2] - E[x]^2
-// clamped at 0, flax's fast variance), * scale + offset, ReLU, bf16 store.
-// Each of use_norm / use_act can be off.
+// + bias (fp32, or bf16 widened to fp32 when bias_bf16 is set), LayerNorm
+// in fp32 (eps from the arguments: kLnEps for the package's kernels;
+// var = E[x^2] - E[x]^2 clamped at 0, flax's fast variance), * scale +
+// offset, ReLU, bf16 store. Each of use_norm / use_act can be off.
 //
 // What bounds it on an H100: at the eval step's shapes the blocks are
 // compute-bound in theory (2*M*K*Cin*Cout flops over few bytes), but this
@@ -48,6 +51,13 @@
 #include <stdint.h>
 
 namespace drn {
+// Internal linkage: each source is its own library, loaded with ctypes, and
+// several instantiate the same template (fused_fusion.cu and block_probe.cu
+// both launch conv_gemm_kernel<kHadamard, 8>). With external linkage the
+// function-local `configured` flag of launch_nf is one object across all
+// loaded libraries, so the second library would skip setting its own
+// kernel's shared-memory limit and its launch would be refused.
+namespace {
 
 using namespace nvcuda;
 
@@ -66,11 +76,13 @@ struct ConvArgs {
   const float* in_scale;         // (Cin), kRowNorm only
   const float* in_bias;          // (Cin), kRowNorm only
   const __nv_bfloat16* w;        // (K, Cin, Cout) bf16
-  const float* bias;             // (Cout)
+  const float* bias;             // (Cout), read when bias_bf16 is null
+  const __nv_bfloat16* bias_bf16;  // (Cout) bf16, widened to fp32 in the epilogue
   const float* scale;            // (Cout)
   const float* offset;           // (Cout)
   __nv_bfloat16* out;            // (B, T_out, Cout) bf16
   int B, T, Cin, Cout, K, stride, T_out, left, use_norm, use_act;
+  float eps;                     // LayerNorm epsilon
 };
 
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
@@ -295,7 +307,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kPerLane; ++j) {
       const int c = lane + 32 * j;
-      v[j] = cs[r * TL::kCLd + c] + a.bias[c];
+      v[j] = cs[r * TL::kCLd + c] +
+             (a.bias_bf16 ? __bfloat162float(a.bias_bf16[c]) : a.bias[c]);
       sum += v[j];
       sumsq += v[j] * v[j];
     }
@@ -307,7 +320,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       const float mean = sum * inv_n;
       const float var = fmaxf(sumsq * inv_n - mean * mean, 0.f);
-      const float rstd = rsqrtf(var + kLnEps);
+      const float rstd = rsqrtf(var + a.eps);
 #pragma unroll
       for (int j = 0; j < kPerLane; ++j) {
         const int c = lane + 32 * j;
@@ -352,4 +365,5 @@ cudaError_t launch_conv_gemm(const ConvArgs& a, cudaStream_t stream) {
   }
 }
 
+}  // namespace
 }  // namespace drn

@@ -26,6 +26,7 @@ int launch(const void* v, const void* q, const void* w, const void* bias,
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B; a.T = T; a.Cin = D; a.Cout = Dout; a.K = K; a.stride = 1;
   a.T_out = T; a.left = (K - 1) / 2; a.use_norm = epilogue; a.use_act = epilogue;
+  a.eps = drn::kLnEps;
   return static_cast<int>(drn::launch_conv_gemm<drn::kHadamard>(
       a, static_cast<cudaStream_t>(stream)));
 }

@@ -83,5 +83,6 @@ extern "C" int drn_fused_stem(const void* x, const void* in_scale,
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B; a.T = T; a.Cin = Cin; a.Cout = Cout; a.K = K; a.stride = 1;
   a.T_out = T; a.left = (K - 1) / 2; a.use_norm = use_norm; a.use_act = use_act;
+  a.eps = drn::kLnEps;
   return static_cast<int>(drn::launch_conv_gemm<drn::kRowNorm>(a, st));
 }

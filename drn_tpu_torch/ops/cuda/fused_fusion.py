@@ -25,6 +25,7 @@ from drn_tpu_torch.ops.cuda.conv_block import (check_cout, check_cuda_inputs,
                                                conv_ln_relu,
                                                conv_ln_relu_reference,
                                                conv_vjp, stream_of)
+from drn_tpu_torch.utils import flops
 
 
 def fused_fusion_block_reference(v, q, w, b, scale, offset):
@@ -74,6 +75,7 @@ def fused_fusion_block(v, q, w, b, scale, offset):
     if rc != 0:
         raise RuntimeError(f"fused_fusion_block: CUDA error {rc} at launch")
     fused_fusion_block.launches += 1
+    flops.add_conv(bsz, t, d, dout, k)
     return out
 
 
@@ -96,6 +98,7 @@ def fused_fusion(v, q, w, b):
     if rc != 0:
         raise RuntimeError(f"fused_fusion: CUDA error {rc} at launch")
     fused_fusion.launches += 1
+    flops.add_conv(bsz, t, d, dout, k)
     return out
 
 

@@ -19,6 +19,7 @@ from drn_tpu_torch.ops.cuda import _build
 from drn_tpu_torch.ops.cuda.conv_block import (check_cout, check_cuda_inputs,
                                                conv_ln_relu_reference,
                                                layer_norm, stream_of)
+from drn_tpu_torch.utils import flops
 
 
 def fused_stem_reference(x, in_scale, in_bias, w, b, out_scale, out_bias,
@@ -70,6 +71,7 @@ def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
     if rc != 0:
         raise RuntimeError(f"fused_stem: CUDA error {rc} at launch")
     fused_stem.launches += 1
+    flops.add_conv(bsz, t, cin, cout, k)
     return out
 
 

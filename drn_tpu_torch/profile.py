@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import time
 from collections import defaultdict
 from pathlib import Path
 
@@ -36,20 +35,9 @@ from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
 from drn_tpu_torch.evaluate import (build_model, make_eval_step,
                                     resolve_device, to_device)
 from drn_tpu_torch.train import make_optimizer, make_train_step
+from drn_tpu_torch.utils.profiling import host_ms
 
 OWN_KERNELS = ("conv_gemm_kernel", "row_stats_kernel")
-
-
-def host_ms(fn, iters: int) -> float:
-    """Host clock around `iters` synchronised calls, after 3 warm-ups."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def _union_us(intervals) -> float:

@@ -1,1 +1,2 @@
-"""Utilities of the port (metric logging, checkpoints)."""
+"""Utilities of the port: metric logging, checkpoints, FLOP counts,
+timing and profiling, numerical sanitizers."""

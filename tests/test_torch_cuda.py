@@ -234,3 +234,50 @@ def test_train_step_kernels_vs_plain(dev):
     assert np.isfinite(losses).all()
     assert abs(losses[0] - losses[1]) <= 0.02 * abs(losses[1])
     assert set(grads[0]) == set(grads[1])
+
+
+@pytest.mark.parametrize("b,t,k", [(32, 64, 3), (8, 21, 3), (16, 64, 4),
+                                   (8, 21, 2)])
+def test_pallas_block_kernel(dev, b, t, k):
+    """The probe's block: bf16 bias, its own eps, K // 2 rows of left
+    padding for odd and even K."""
+    from drn_tpu_torch.ops.cuda import pallas_block, pallas_block_reference
+
+    d = 512
+    v, q = _randn(dev, b, t, d), _randn(dev, b, d, seed=5)
+    w = _randn(dev, k, d, d, scale=0.05, seed=6)
+    bias = _randn(dev, d, scale=0.1, seed=1)
+    _, scale, offset = _epilogue(dev, d)
+    for eps in (1e-6, 1e-3):
+        before = launch_counts()["pallas_block"]
+        got = pallas_block(v, q, w, bias, scale, offset, eps)
+        torch.cuda.synchronize()
+        assert launch_counts()["pallas_block"] == before + 1
+        torch.testing.assert_close(
+            got.float(), pallas_block_reference(v, q, w, bias, scale, offset,
+                                                eps).float(), **TOL)
+
+
+def test_flops_equal_through_kernels_and_plain_versions(dev):
+    """One eval step's matmul + conv FLOPs: the kernels report theirs, the
+    plain versions' products are counted by FlopCounterMode; and the cuDNN
+    LSTM counts what the CPU's does."""
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
+    from drn_tpu_torch.evaluate import build_model, make_eval_step, to_device
+    from drn_tpu_torch.models.layers import KERNEL_OPS, PLAIN_OPS
+    from drn_tpu_torch.utils.flops import estimate_flops
+
+    cfg = get_config("synthetic_tiny")
+    batch = to_device(next(BatchIterator(
+        make_dataset(cfg.data, cfg.model, split="test"), 8,
+        shuffle=False).epoch(0)), dev)
+    counts = [estimate_flops(make_eval_step(
+        cfg, build_model(cfg, seed=1, ops=ops)), batch)
+        for ops in (KERNEL_OPS, PLAIN_OPS)]
+    assert counts[0] == counts[1] > 0
+    lstm = torch.nn.LSTM(16, 8, num_layers=2, bidirectional=True,
+                         batch_first=True)
+    x = torch.randn(4, 7, 16)
+    want = estimate_flops(lstm, x)
+    assert estimate_flops(lstm.to(dev), x.to(dev)) == want
