@@ -12,11 +12,13 @@ non-zero exit code:
               (charades_c3d_batched_eval, B=48) and train step (B=384:
               forward, the backward's recomputes, the fusion dx convs)
               give it, and the stem at activitynet_c3d's Cin=500 (B=16,
-              T=256), held against its plain PyTorch version on the card
+              T=256) and at synthetic_recipe's Cin=256 -> Cout=128 (B=64,
+              T=64), held against its plain PyTorch version on the card
               (bf16 tolerance below), and timed with CUDA events over a
               CUDA graph of back-to-back launches: the kernel, its plain
               version, and `F.conv1d` of the same conv as a yardstick (the
-              port never calls it).
+              port never calls it). The stem's rows also carry their grid
+              (`blocks`) and achieved `tflops`.
   3. main     `build_model` + `evaluate()` at the flagship width (D=512,
               F=4096, T=64, 3 levels) on the synthetic fixture, 3 batches of
               48 (the last one ragged); the launch counts of that run; the
@@ -132,8 +134,9 @@ def kernel_phase(cfg, dev):
     its plain version, times, bound. Rows of the eval step (B=48), of the
     train step (B=384: the forward's launches, the backward's recomputes
     of the pre-LayerNorm conv with LayerNorm and ReLU off, each fusion
-    level's dx conv), and the stem at activitynet_c3d's Cin=500 (0 per
-    step: coverage). Returns ({(path, kernel): totals per step}, rows)."""
+    level's dx conv), and the stem at activitynet_c3d's Cin=500 and
+    synthetic_recipe's Cout=128 (0 per step: coverage). Returns
+    ({(path, kernel): totals per step}, rows)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -220,26 +223,29 @@ def kernel_phase(cfg, dev):
                     2 * (2 * v.numel() + q.numel() + w.numel())
                     + (12 if epilogue else 4) * d)
 
-    def stem_row(path, b, t, cin, count, use_norm=True, **note):
+    def stem_row(path, b, t, cin, count, use_norm=True, cout=d, **note):
         """fused_stem on fp32 features; without its output LayerNorm and
-        ReLU for the backward's recompute."""
+        ReLU for the backward's recompute. The row also gets the kernel's
+        grid (`blocks`) and its achieved TFLOP/s."""
         x = randn(b, t, cin, scale=2.0, dtype=torch.float32) + 0.5
         in_scale = 1.0 + randn(cin, scale=0.1, dtype=torch.float32)
         in_bias = randn(cin, scale=0.1, dtype=torch.float32)
-        w = randn(3, cin, d, scale=1 / math.sqrt(3 * cin))
-        bias, scale, offset = epilogue_params(d)
+        w = randn(3, cin, cout, scale=1 / math.sqrt(3 * cin))
+        bias, scale, offset = epilogue_params(cout)
         args = (x, in_scale, in_bias, w, bias, scale, offset, torch.bfloat16,
                 use_norm, use_norm)
         xn = conv_block.layer_norm(x, in_scale, in_bias).to(torch.bfloat16)
+        flops = 2 * b * t * 3 * cin * cout
         measure(path, "fused_stem",
-                dict(B=b, T=t, Cin=cin, Cout=d, K=3, use_norm=use_norm,
+                dict(B=b, T=t, Cin=cin, Cout=cout, K=3, use_norm=use_norm,
                      use_act=use_norm, **note),
                 count, lambda: stem.fused_stem(*args),
                 lambda: stem.fused_stem_reference(*args),
-                library_conv(xn, w, 3, 1),
-                2 * b * t * 3 * cin * d,
-                4 * x.numel() + 8 * cin + 2 * w.numel() + 2 * b * t * d
-                + (12 if use_norm else 4) * d)
+                library_conv(xn, w, 3, 1), flops,
+                4 * x.numel() + 8 * cin + 2 * w.numel() + 2 * b * t * cout
+                + (12 if use_norm else 4) * cout)
+        rows[-1].update(blocks=stem.stem_plan(b * t, cin, cout).grid,
+                        tflops=flops / rows[-1]["ms"] / 1e9)
 
     fwd = [s[1:] for s in flagship_conv_sites(cfg)]
     b = cfg.eval.batch_size
@@ -257,8 +263,10 @@ def kernel_phase(cfg, dev):
     stem_row("train", TRAIN_BATCH, t0, fdim, 1)
     stem_row("train", TRAIN_BATCH, t0, fdim, 1, use_norm=False)
 
-    # activitynet_c3d's 500 features: bf16 rows not 16-byte aligned.
+    # activitynet_c3d's 500 features: a ragged last k-tile of channels;
+    # synthetic_recipe's stem, Cin=256 -> Cout=128, at its eval batch.
     stem_row("coverage", 16, 256, 500, 0, config="activitynet_c3d")
+    stem_row("coverage", 64, 64, 256, 0, cout=128, config="synthetic_recipe")
 
     totals = {}
     for r in rows:

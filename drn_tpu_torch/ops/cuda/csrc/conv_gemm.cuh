@@ -1,8 +1,8 @@
 // conv1d-as-GEMM with a fused LayerNorm/ReLU epilogue, for sm_90a.
 //
-// One kernel template serves the four TPU kernels of the package; they
-// differ only in how a tile of the input is staged (the prologue) and in
-// which parts of the epilogue run:
+// One kernel template serves three TPU kernels of the package and the
+// measurement probe's; they differ only in how a tile of the input is
+// staged (the prologue) and in which parts of the epilogue run:
 //
 //   kPlain     conv_block.cu   x bf16 as it is
 //   kHadamard  fused_fusion.cu x = v * q[b] (bf16 product), never in HBM;
@@ -10,9 +10,8 @@
 //                              or without it (fused_fusion)
 //              block_probe.cu  the same block as the measurement probe's
 //                              kernel: bf16 bias, its own eps, left pad K/2
-//   kRowNorm   stem.cu         x = LN(x_fp32) * s_in + b_in cast to bf16,
-//                              never in HBM (row statistics from a first,
-//                              small pass: row_stats_kernel)
+//
+// (The stem, stem.cu, has a kernel of its own: stem_sm90.cuh.)
 //
 // Any Cin: a row whose width is not a multiple of 8 is staged channel by
 // channel (fetch_a). The backward passes recompute the pre-LayerNorm conv
@@ -67,14 +66,11 @@ constexpr int kThreads = 256;    // 8 warps: 2 along rows x 4 along columns
 constexpr int kALd = kBK + 8;    // bf16 row pitch of the A tile (padding vs bank conflicts)
 constexpr float kLnEps = 1e-6f;  // flax.linen.LayerNorm default
 
-enum Prologue { kPlain = 0, kHadamard = 1, kRowNorm = 2 };
+enum Prologue { kPlain = 0, kHadamard = 1 };
 
 struct ConvArgs {
-  const void* x;                 // (B, T, Cin): bf16, fp32 for kRowNorm
+  const void* x;                 // (B, T, Cin) bf16
   const __nv_bfloat16* q;        // (B, Cin) bf16, kHadamard only
-  const float2* stats;           // (B*T) (mean, rstd), kRowNorm only
-  const float* in_scale;         // (Cin), kRowNorm only
-  const float* in_bias;          // (Cin), kRowNorm only
   const __nv_bfloat16* w;        // (K, Cin, Cout) bf16
   const float* bias;             // (Cout), read when bias_bf16 is null
   const __nv_bfloat16* bias_bf16;  // (Cout) bf16, widened to fp32 in the epilogue
@@ -134,15 +130,9 @@ __device__ __forceinline__ uint4 fetch_a(const ConvArgs& a, int gm, int tap,
       f[j] = 0.f;
       if (ch >= a.Cin) continue;
       const size_t at = row * a.Cin + ch;
-      if (PRO == kRowNorm) {
-        const float2 st = a.stats[row];
-        f[j] = (static_cast<const float*>(a.x)[at] - st.x) *
-                   (st.y * a.in_scale[ch]) + a.in_bias[ch];
-      } else {
-        f[j] = __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[at]);
-        if (PRO == kHadamard)
-          f[j] *= __bfloat162float(a.q[static_cast<size_t>(b) * a.Cin + ch]);
-      }
+      f[j] = __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[at]);
+      if (PRO == kHadamard)
+        f[j] *= __bfloat162float(a.q[static_cast<size_t>(b) * a.Cin + ch]);
     }
     uint32_t* rr = reinterpret_cast<uint32_t*>(&r);
 #pragma unroll
@@ -168,25 +158,6 @@ __device__ __forceinline__ uint4 fetch_a(const ConvArgs& a, int gm, int tap,
       // reference's bf16 multiply.
       rr[i] = pack_bf16x2(fv.x * fq.x, fv.y * fq.y);
     }
-  } else {  // kRowNorm
-    const float* xr = static_cast<const float*>(a.x) + row * a.Cin + c;
-    const float4 x0 = *reinterpret_cast<const float4*>(xr);
-    const float4 x1 = *reinterpret_cast<const float4*>(xr + 4);
-    const float4 s0 = *reinterpret_cast<const float4*>(a.in_scale + c);
-    const float4 s1 = *reinterpret_cast<const float4*>(a.in_scale + c + 4);
-    const float4 o0 = *reinterpret_cast<const float4*>(a.in_bias + c);
-    const float4 o1 = *reinterpret_cast<const float4*>(a.in_bias + c + 4);
-    const float2 st = a.stats[row];
-    const float mu = st.x, rs = st.y;
-    uint32_t* rr = reinterpret_cast<uint32_t*>(&r);
-    rr[0] = pack_bf16x2((x0.x - mu) * (rs * s0.x) + o0.x,
-                        (x0.y - mu) * (rs * s0.y) + o0.y);
-    rr[1] = pack_bf16x2((x0.z - mu) * (rs * s0.z) + o0.z,
-                        (x0.w - mu) * (rs * s0.w) + o0.w);
-    rr[2] = pack_bf16x2((x1.x - mu) * (rs * s1.x) + o1.x,
-                        (x1.y - mu) * (rs * s1.y) + o1.y);
-    rr[3] = pack_bf16x2((x1.z - mu) * (rs * s1.z) + o1.z,
-                        (x1.w - mu) * (rs * s1.w) + o1.w);
   }
   return r;
 }

@@ -2,20 +2,28 @@
 // `_stem_kernel`, launched by `_forward`): input LayerNorm over Cin in fp32
 // -> cast to bf16 -> conv1d k Cin->Cout -> bias -> LayerNorm in fp32 ->
 // ReLU (the output LayerNorm and ReLU can be turned off: the backward pass
-// recomputes the pre-LayerNorm conv). Two launches: row_stats_kernel reads the fp32 features once for
-// the per-(b, t) mean and rstd (8 bytes a row out), then the conv kernel
-// normalises each staged fp32 chunk, applies in_scale / in_bias and casts
-// to bf16 in its prologue (kRowNorm). The normalised copy of the features,
-// the largest intermediate of the network, never reaches HBM.
+// recomputes the pre-LayerNorm conv). Two launches: row_stats_kernel reads
+// the fp32 features once for the per-(b, t) mean and rstd (8 bytes a row
+// out), then stem_kernel (stem_sm90.cuh) normalises each staged fp32 chunk,
+// applies in_scale / in_bias and casts to bf16 as it stages the A tile.
+// The normalised copy of the features, the largest intermediate of the
+// network, never reaches HBM.
 //
 // The TPU kernel walked Cin as a sequential grid axis with an accumulator
 // carried in VMEM scratch (the weight, 12.6 MB at Cin 4096, does not fit
 // beside the data); here that axis is the k-tile loop inside each block.
-// The price of the two-pass design is one extra read of the features
-// (B*T*Cin*4 bytes) for the statistics.
 //
-// Bound on an H100 and what the design does about it: conv_gemm.cuh.
-#include "conv_gemm.cuh"
+// What bounds it on an H100 (charades_c3d: T = 64, Cin = 4096, Cout = 512):
+// at the eval step (B = 48) 38.7 GFLOP, 0.039 ms at the bf16 peak, against
+// 66 MB (0.020 ms at 3.35 TB/s); at the train step (B = 384) 309 GFLOP,
+// 0.313 ms, against 441 MB (0.132 ms): operations, both. The design's own
+// limits: a block owns 64 rows, so B = 48 fills 48 of the 132 SMs (0.107 ms
+// at their peak), and every block streams the whole weight from L2 (12.6
+// MB; 4.8 GB a launch at B = 384).
+//
+// Stages built: (1) wgmma from 128-byte-swizzled shared memory, 64-row
+// tiles of all Cout columns, a ring of cp.async weight stages.
+#include "stem_sm90.cuh"
 
 namespace {
 
@@ -56,12 +64,16 @@ __global__ void row_stats_kernel(const float* __restrict__ x,
 
 }  // namespace
 
+// rows, depth, stages, smem_bytes, grid: the launch geometry of
+// drn_tpu_torch/ops/cuda/stem.py::stem_plan, checked against this build.
 extern "C" int drn_fused_stem(const void* x, const void* in_scale,
                               const void* in_bias, const void* w,
                               const void* bias, const void* out_scale,
                               const void* out_bias, void* stats, void* out,
                               int B, int T, int Cin, int Cout, int K,
-                              int use_norm, int use_act, void* stream) {
+                              int use_norm, int use_act, int rows, int depth,
+                              int stages, int smem_bytes, int grid,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T;
   const int rows_per_block = 8;
@@ -71,8 +83,8 @@ extern "C" int drn_fused_stem(const void* x, const void* in_scale,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  drn::ConvArgs a{};
-  a.x = x;
+  drn::StemArgs a{};
+  a.x = static_cast<const float*>(x);
   a.stats = static_cast<const float2*>(stats);
   a.in_scale = static_cast<const float*>(in_scale);
   a.in_bias = static_cast<const float*>(in_bias);
@@ -81,8 +93,9 @@ extern "C" int drn_fused_stem(const void* x, const void* in_scale,
   a.scale = static_cast<const float*>(out_scale);
   a.offset = static_cast<const float*>(out_bias);
   a.out = static_cast<__nv_bfloat16*>(out);
-  a.B = B; a.T = T; a.Cin = Cin; a.Cout = Cout; a.K = K; a.stride = 1;
-  a.T_out = T; a.left = (K - 1) / 2; a.use_norm = use_norm; a.use_act = use_act;
-  a.eps = drn::kLnEps;
-  return static_cast<int>(drn::launch_conv_gemm<drn::kRowNorm>(a, st));
+  a.M = M; a.T = T; a.Cin = Cin; a.K = K;
+  a.n_k = K * ((Cin + drn::kBK - 1) / drn::kBK);
+  a.use_norm = use_norm; a.use_act = use_act;
+  return static_cast<int>(drn::launch_stem(a, Cout, rows, depth, stages,
+                                           smem_bytes, grid, st));
 }

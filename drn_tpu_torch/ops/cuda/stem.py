@@ -2,24 +2,61 @@
 `drn_tpu/ops/pallas/stem.py::fused_stem`.
 
 input LayerNorm over Cin (fp32) → cast to bf16 → conv1d Cin→Cout (K odd)
-→ bias → LayerNorm (fp32) → ReLU. The CUDA kernel (csrc/stem.cu) keeps the
-normalised copy of the features out of HBM: a first small pass writes each
-row's mean and rstd, and the conv kernel normalises each fp32 chunk as it
-stages it. A CUDA tensor launches the kernel or raises; a CPU tensor takes
-`fused_stem_reference`. The output LayerNorm and ReLU can be turned off
-(`use_norm`, `use_act`): the backward pass (ops/cuda/autograd.py)
-recomputes the pre-LayerNorm conv that way.
+→ bias → LayerNorm (fp32) → ReLU. The CUDA kernel (csrc/stem.cu,
+csrc/stem_sm90.cuh) keeps the normalised copy of the features out of HBM:
+a first small pass writes each row's mean and rstd, and the conv kernel
+normalises each fp32 chunk as it stages it for the tensor cores (wgmma,
+64-row tiles of all Cout columns). A CUDA tensor launches the kernel or
+raises; a CPU tensor takes `fused_stem_reference`. The output LayerNorm
+and ReLU can be turned off (`use_norm`, `use_act`): the backward pass
+(ops/cuda/autograd.py) recomputes the pre-LayerNorm conv that way.
+
+`stem_plan` is the kernel's launch geometry, computed here and checked by
+the C entry point against what the source instantiates.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from drn_tpu_torch.ops.cuda import _build
-from drn_tpu_torch.ops.cuda.conv_block import (check_cout, check_cuda_inputs,
+from drn_tpu_torch.ops.cuda.conv_block import (check_cuda_inputs,
                                                conv_ln_relu_reference,
                                                layer_norm, stream_of)
 from drn_tpu_torch.utils import flops
+
+# csrc/stem_sm90.cuh: the widths it instantiates, its tile, its ring.
+STEM_COUTS = (64, 128, 256, 512)
+TILE_ROWS = 64   # output rows of a block: one wgmma M
+TILE_DEPTH = 64  # channels of a k-tile: one 128-byte swizzle row of bf16
+MAX_STAGES = 8
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on an H100
+# LayerNorm row sums of both warpgroups, barriers, the ring's alignment.
+SMEM_FIXED = 2 * TILE_ROWS * 8 + 2 * MAX_STAGES * 8 + 1024
+
+
+class StemPlan(NamedTuple):
+    rows: int        # output rows per block
+    depth: int       # channels per k-tile
+    stages: int      # k-tiles in the shared-memory ring
+    smem_bytes: int  # dynamic shared memory per block
+    grid: int        # blocks: ceil(M / rows)
+    k_tiles: int     # K * ceil(Cin / depth): the reduction loop's length
+
+
+def stem_plan(m: int, cin: int, cout: int, k: int = 3) -> StemPlan:
+    """Launch geometry of the stem kernel for M = B·T rows: each ring
+    stage holds one A tile (rows × depth bf16) and one B tile (depth ×
+    Cout bf16); as many stages as fit, at most MAX_STAGES."""
+    if cout not in STEM_COUTS:
+        raise ValueError(f"fused_stem: Cout={cout} not in {STEM_COUTS}")
+    stage = 2 * TILE_DEPTH * (TILE_ROWS + cout)
+    stages = min(MAX_STAGES, (SMEM_LIMIT - SMEM_FIXED) // stage)
+    return StemPlan(TILE_ROWS, TILE_DEPTH, stages,
+                    stages * stage + SMEM_FIXED, -(-m // TILE_ROWS),
+                    k * -(-cin // TILE_DEPTH))
 
 
 def fused_stem_reference(x, in_scale, in_bias, w, b, out_scale, out_bias,
@@ -50,7 +87,7 @@ def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
         raise ValueError(f"fused_stem: odd kernel width needed, got {k}")
     if cdtype != torch.bfloat16:
         raise TypeError(f"fused_stem: the kernel computes in bf16, got {cdtype}")
-    check_cout("fused_stem", cout)
+    plan = stem_plan(bsz * t, cin, cout, k)
     check_cuda_inputs(
         "fused_stem",
         x=(x, torch.float32, (None, None, cin)),
@@ -63,11 +100,12 @@ def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
     )
     stats = torch.empty((bsz * t, 2), dtype=torch.float32, device=x.device)
     out = torch.empty((bsz, t, cout), dtype=torch.bfloat16, device=x.device)
-    fn = _build.entry("stem", "drn_fused_stem", 9, 7)
+    fn = _build.entry("stem", "drn_fused_stem", 9, 12)
     rc = fn(x.data_ptr(), in_scale.data_ptr(), in_bias.data_ptr(),
             w.data_ptr(), b.data_ptr(), out_scale.data_ptr(),
             out_bias.data_ptr(), stats.data_ptr(), out.data_ptr(), bsz, t,
-            cin, cout, k, int(use_norm), int(use_act), stream_of(x))
+            cin, cout, k, int(use_norm), int(use_act), *plan[:5],
+            stream_of(x))
     if rc != 0:
         raise RuntimeError(f"fused_stem: CUDA error {rc} at launch")
     fused_stem.launches += 1

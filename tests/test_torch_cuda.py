@@ -90,14 +90,26 @@ def test_fused_fusion_block_kernel(dev, t):
         fused_fusion_block_reference(*args).float(), **TOL)
 
 
-def test_fused_stem_kernel(dev):
-    cin, d = 1024, 512
-    x = _randn(dev, 4, 64, cin, scale=3.0, dtype=torch.float32) + 0.5
+@pytest.mark.parametrize("use_norm", [True, False])
+@pytest.mark.parametrize("t", [64, 57, 256])
+@pytest.mark.parametrize("cin", [4096, 1024, 500, 256])
+@pytest.mark.parametrize("cout", [64, 128, 256, 512])
+def test_fused_stem_kernel(dev, cout, cin, t, use_norm):
+    """Every width the kernel instantiates; Cin 500 (activitynet_c3d: a
+    ragged last k-tile), T 57 (M = 4·57 not a multiple of the 64-row tile,
+    tiles across video boundaries); LayerNorm and ReLU off as in the
+    backward's recompute. Features with a large mean test the input
+    LayerNorm's fast-variance clamp."""
+    x = _randn(dev, 4, t, cin, scale=3.0, dtype=torch.float32) + 0.5
     args = (x, 1.0 + _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=7),
             _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=8),
-            _randn(dev, 3, cin, d, scale=(3 * cin) ** -0.5, seed=9),
-            *_epilogue(dev, d), torch.bfloat16)
-    torch.testing.assert_close(fused_stem(*args).float(),
+            _randn(dev, 3, cin, cout, scale=(3 * cin) ** -0.5, seed=9),
+            *_epilogue(dev, cout), torch.bfloat16, use_norm, use_norm)
+    before = launch_counts()["fused_stem"]
+    got = fused_stem(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_stem"] == before + 1
+    torch.testing.assert_close(got.float(),
                                fused_stem_reference(*args).float(), **TOL)
 
 
@@ -105,6 +117,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = _randn(dev, 2, 16, 64)
     w = _randn(dev, 3, 64, 64)
     b, s, o = _epilogue(dev, 64)
+    xf, ones, zeros = x.float(), s[:64].clone(), o[:64].clone()
+    with pytest.raises(ValueError):                      # Cout not built
+        fused_stem(xf, ones, zeros, _randn(dev, 3, 64, 96), *_epilogue(dev, 96))
+    with pytest.raises(ValueError):                      # even K
+        fused_stem(xf, ones, zeros, _randn(dev, 2, 64, 64), b, s, o)
+    with pytest.raises(TypeError):                       # bf16 features
+        fused_stem(x, ones, zeros, w, b, s, o)
     with pytest.raises(TypeError):
         conv_ln_relu(x.float(), w, b, s, o)              # fp32 activations
     with pytest.raises(ValueError):
@@ -145,17 +164,11 @@ def test_fused_fusion_kernel(dev, t):
                                **TOL)
 
 
-def test_stem_and_conv_at_cin_500(dev):
+def test_conv_ln_relu_at_cin_500(dev):
     """activitynet_c3d's 500 features: rows not 16-byte aligned in bf16,
-    and a last channel vector that runs past Cin."""
+    and a last channel vector that runs past Cin. (The stem at Cin 500 is
+    a case of test_fused_stem_kernel.)"""
     cin, d = 500, 512
-    x = _randn(dev, 4, 64, cin, scale=3.0, dtype=torch.float32) + 0.5
-    args = (x, 1.0 + _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=7),
-            _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=8),
-            _randn(dev, 3, cin, d, scale=(3 * cin) ** -0.5, seed=9),
-            *_epilogue(dev, d), torch.bfloat16)
-    torch.testing.assert_close(fused_stem(*args).float(),
-                               fused_stem_reference(*args).float(), **TOL)
     xb = _randn(dev, 4, 37, cin, seed=10)
     for stride in (1, 2):
         cargs = (xb, _randn(dev, 3, cin, d, scale=(3 * cin) ** -0.5, seed=11),
