@@ -25,10 +25,15 @@
 // rows x 128 bytes; row r's 16-byte chunk j lives at chunk j ^ (r % 8).
 // As many stages as fit in 227 KB, at most 8 (3 at Cout = 512).
 //
-// Pipeline: every thread stages A (gather, normalise, cast, swizzled
-// 16-byte store) and B (cp.async, 16 bytes, zero-filled past Cin) for the
-// tile kStages - 1 ahead, while the warpgroups' wgmma of the current tile
-// runs; one barrier per k-tile.
+// Pipeline: warp-specialised. A producer warpgroup (setmaxnreg down to
+// kProducerRegs) fills the ring: one thread announces the weight tile's
+// bytes on the slot's "full" mbarrier and copies it with TMA (3-D tensor
+// map over (K, Cin, Cout), 128-byte swizzle, zeros past Cin); all 128
+// gather, normalise, cast and store A (16-byte swizzled stores, two rows'
+// loads in flight at once), fence to the async proxy and arrive. The two
+// consumer warpgroups (setmaxnreg up to kConsumerRegs) wait on "full",
+// issue the tile's four k16 wgmma, keep one group in flight, and release
+// the previous slot on its "empty" mbarrier.
 //
 // Epilogue from the accumulator registers: + bias, row sums and sums of
 // squares reduced across the 4 lanes that share a row, exchanged between
@@ -37,6 +42,7 @@
 // use_norm / use_act can be off (the backward's recompute).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +54,14 @@ namespace {
 
 constexpr int kBM = 64;                  // output rows per block
 constexpr int kBK = 64;                  // channels per k-tile: one 128-byte row
-constexpr int kThreads = 256;            // two consumer warpgroups
+constexpr int kProducers = 128;          // one producer warpgroup
+constexpr int kThreads = kProducers + 256;  // and two consumer warpgroups
+// Registers a thread after setmaxnreg: 128 x 120 + 256 x 192 <= 384 x 168,
+// the launch's allocation.
+constexpr int kProducerRegs = 120;
+constexpr int kConsumerRegs = 192;
+constexpr int kUnits = 5;   // 16-byte A units a producer thread holds: 80 rows
+constexpr int kMaxK = 17;   // the window kBM + K - 1 fits 16 * kUnits rows
 constexpr int kMaxStages = 8;
 constexpr int kSmemLimit = 232448;       // 227 KB a block on an H100
 constexpr int kATileBytes = kBM * kBK * 2;
@@ -86,18 +99,42 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool valid) {
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// One arrival that also announces `bytes` of TMA traffic on the barrier.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// Until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// One box of the weight's tensor map into shared memory, completion
+// counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
@@ -271,13 +308,12 @@ __device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// 8 channels c..c+7 of input row `row` (time index ts within its video),
-// LayerNorm'd, scaled, shifted and cast to bf16: 16 bytes of A. Zero
-// outside [0, T) and past Cin (the in_bias term included).
-__device__ __forceinline__ uint4 load_a(const StemArgs& a, int row, int ts,
-                                        int c) {
+// 8 channels c..c+7 of input row `row`, LayerNorm'd, scaled, shifted and
+// cast to bf16: 16 bytes of A, channel by channel where rows are not
+// 16-byte aligned; zero past Cin (the in_bias term included).
+__device__ __forceinline__ uint4 load_a(const StemArgs& a, int row, int c) {
   uint4 r = make_uint4(0u, 0u, 0u, 0u);
-  if (ts < 0 || ts >= a.T || c >= a.Cin) return r;
+  if (c >= a.Cin) return r;
   const float2 st = __ldg(a.stats + row);
   const float* xr = a.x + static_cast<size_t>(row) * a.Cin;
   float f[8];
@@ -314,202 +350,267 @@ __device__ __forceinline__ uint4 load_a(const StemArgs& a, int row, int ts,
 }
 
 template <int NW>
-__global__ void __launch_bounds__(kThreads, 1) stem_kernel(const StemArgs a) {
+__global__ void __launch_bounds__(kThreads, 1)
+    stem_kernel(const __grid_constant__ CUtensorMap wmap, const StemArgs a) {
   using G = Geometry<NW>;
   constexpr int kS = G::kStages;
   constexpr int kCout = G::kCout;
-  constexpr int kN = kCout / 2;  // columns of each warpgroup
-  constexpr int kAcc = kN / 2;   // fp32 accumulators a thread
+  constexpr int kN = kCout / 2;  // columns of each consumer warpgroup
+  constexpr int kAcc = kN / 2;   // fp32 accumulators a consumer thread
+  constexpr uint32_t kBBytes = kBK * kCout * 2;
   static_assert(kS >= 3, "the pipeline needs three stages");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
-  float2* xchg = reinterpret_cast<float2*>(smem_raw + (ring - raw) +
-                                           kS * G::kStageBytes);
-
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.x * kBM;
-  const int left = (a.K - 1) >> 1;
-
-  // This thread's two 16-byte units of each A tile: rows ar + 32 i,
-  // channels 8 aj .. 8 aj + 7 of the chunk. Source row of tap `tap`:
-  // a_row[i] + tap, its time index a_ts[i] + tap (far below 0 past M).
-  const int aj = tid & 7, ar = tid >> 3;
-  int a_row[2], a_ts[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gm = m0 + ar + 32 * i;
-    a_row[i] = gm - left;
-    a_ts[i] = gm < a.M ? gm % a.T - left : -(1 << 30);
-  }
-
+  unsigned char* ring_ptr = smem_raw + (ring - raw);
+  float2* xchg = reinterpret_cast<float2*>(ring_ptr + kS * G::kStageBytes);
+  const uint32_t bars = smem_u32(xchg + 2 * kBM);
+  auto full = [&](int s) { return bars + 8 * s; };          // tile s is in
+  auto empty = [&](int s) { return bars + 8 * (kS + s); };  // slot s is read
   auto a_tile = [&](int s) { return ring + s * G::kStageBytes; };
-  auto b_tile = [&](int s) { return ring + s * G::kStageBytes + kATileBytes; };
+  auto b_tile = [&](int s) { return a_tile(s) + kATileBytes; };
 
-  // Stage k-tile kt (chunk kt / K, tap kt % K) into ring slot s.
-  auto produce = [&](int kt, int s) {
-    const int chunk = kt / a.K, tap = kt - chunk * a.K;
-    const int c0 = chunk * kBK;
-    constexpr int kVecRow = kCout / 8;  // 16-byte vectors in a row of B
-#pragma unroll
-    for (int i = 0; i < 2 * NW; ++i) {  // kBK * kVecRow / kThreads
-      const int v = tid + i * kThreads;
-      const int r = v / kVecRow, q = v - r * kVecRow;
-      const bool ok = c0 + r < a.Cin;
-      const __nv_bfloat16* src =
-          ok ? a.w + (static_cast<size_t>(tap) * a.Cin + c0 + r) * kCout + q * 8
-             : a.w;
-      cp_async_16(b_tile(s) + (q >> 3) * (kBK * 128) + r * 128 +
-                      (((q & 7) ^ (r & 7)) << 4),
-                  src, ok);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), kProducers + 1);  // + the weight copies' arrival
+      mbar_init(empty(s), 2);              // one per consumer warpgroup
     }
-    const int c = c0 + 8 * aj;
-    uint4 v[2];
-    if ((a.Cin & 3) == 0 && c + 8 <= a.Cin) {
-      // Both units share their 8 channels: scale and shift loaded once,
-      // both rows' loads in flight before any arithmetic.
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(a.in_scale + c));
-      const float4 s1 = __ldg(reinterpret_cast<const float4*>(a.in_scale + c + 4));
-      const float4 o0 = __ldg(reinterpret_cast<const float4*>(a.in_bias + c));
-      const float4 o1 = __ldg(reinterpret_cast<const float4*>(a.in_bias + c + 4));
-      float4 x0[2], x1[2];
-      float2 st[2];
-      bool ok[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int ts = a_ts[i] + tap;
-        ok[i] = ts >= 0 && ts < a.T;
-        const float* xr = a.x + static_cast<size_t>(ok[i] ? a_row[i] + tap : 0) * a.Cin + c;
-        x0[i] = __ldg(reinterpret_cast<const float4*>(xr));
-        x1[i] = __ldg(reinterpret_cast<const float4*>(xr + 4));
-        st[i] = __ldg(a.stats + (ok[i] ? a_row[i] + tap : 0));
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float mu = st[i].x, rs = st[i].y;
-        v[i] = make_uint4(
-            pack_bf16x2((x0[i].x - mu) * (rs * s0.x) + o0.x,
-                        (x0[i].y - mu) * (rs * s0.y) + o0.y),
-            pack_bf16x2((x0[i].z - mu) * (rs * s0.z) + o0.z,
-                        (x0[i].w - mu) * (rs * s0.w) + o0.w),
-            pack_bf16x2((x1[i].x - mu) * (rs * s1.x) + o1.x,
-                        (x1[i].y - mu) * (rs * s1.y) + o1.y),
-            pack_bf16x2((x1[i].z - mu) * (rs * s1.z) + o1.z,
-                        (x1[i].w - mu) * (rs * s1.w) + o1.w));
-        if (!ok[i]) v[i] = make_uint4(0u, 0u, 0u, 0u);
-      }
-    } else {  // the ragged last chunk, or rows not 16-byte aligned
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        v[i] = load_a(a, a_row[i] + tap, a_ts[i] + tap, c);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = ar + 32 * i;
-      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       a_tile(s) + r * 128 + ((aj ^ (r & 7)) << 4)),
-                   "r"(v[i].x), "r"(v[i].y), "r"(v[i].z), "r"(v[i].w)
-                   : "memory");
-    }
-  };
-
-  float acc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kS - 1; ++s) {
-    if (s < a.n_k) produce(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  const int m0 = blockIdx.x * kBM;
 
-  // This warpgroup's columns wg * kN ..: whole 64-column boxes, or half of
-  // the one box at Cout = 64 (a 64-byte start offset inside the swizzle
-  // row, as the k16 steps of A take 32-byte offsets).
-  const uint32_t b_col = (wg * kN / 64) * (kBK * 128) + (wg * kN % 64) * 2;
-  for (int kt = 0; kt < a.n_k; ++kt) {
-    const int s = kt % kS;
-    cp_async_wait<kS - 2>();  // this thread's B copies of tile kt landed
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();          // everyone's tile kt is in; wgmma kt-1 done
-    fence_acc(acc);
-    wgmma_fence();
+  if (tid < kProducers) {
+    // Producer warpgroup. Thread 0 copies each weight tile with TMA. All
+    // 128 stage A: a chunk's window of kBM + K - 1 input rows (rows m0 -
+    // K/2 + w, w = ar + 16 i) is loaded, normalised and cast once, in
+    // registers (channels 8 aj .. 8 aj + 7 of the chunk), then stored into
+    // each tap's A tile at row w - tap: the tap-shifted copies. keep[i]
+    // bit tap says whether that tile row takes window row w (its own
+    // video's input at time t - K/2 + tap lies in [0, T)) or zeros.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int aj = tid & 7, ar = tid >> 3;
+    const int left = (a.K - 1) >> 1, win = kBM + a.K - 1;
+    int src[kUnits];
+    unsigned keep[kUnits];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma<kN>(acc, make_desc(a_tile(s) + kk * 32, 16, 1024),
-                make_desc(b_tile(s) + b_col + kk * 2048, kBK * 128, 1024));
-    wgmma_commit();
-    fence_acc(acc);
-    // Slot (kt - 1) % kS is free: every thread waited for its wgmma of
-    // tile kt - 1 before the barrier above.
-    const int kn = kt + kS - 1;
-    if (kn < a.n_k) produce(kn, kn % kS);
-    cp_async_commit();
+    for (int i = 0; i < kUnits; ++i) {
+      const int w = ar + 16 * i;
+      src[i] = min(max(m0 - left + w, 0), a.M - 1);
+      keep[i] = 0u;
+      for (int tap = 0; tap < a.K; ++tap) {
+        const int r = w - tap, gm = m0 + r;
+        if (r < 0 || r >= kBM || gm >= a.M) continue;
+        const int ts = gm % a.T - left + tap;
+        if (ts >= 0 && ts < a.T) keep[i] |= 1u << tap;
+      }
+    }
+    const int nkc = (a.Cin + kBK - 1) / kBK;
+    int kt = 0;
+    for (int chunk = 0; chunk < nkc; ++chunk) {
+      const int c = chunk * kBK + 8 * aj;
+      uint4 v[kUnits] = {};
+      if ((a.Cin & 3) == 0 && c + 8 <= a.Cin) {
+        // Every load of the window in flight before any arithmetic.
+        const float4 s0 = __ldg(reinterpret_cast<const float4*>(a.in_scale + c));
+        const float4 s1 = __ldg(reinterpret_cast<const float4*>(a.in_scale + c + 4));
+        const float4 o0 = __ldg(reinterpret_cast<const float4*>(a.in_bias + c));
+        const float4 o1 = __ldg(reinterpret_cast<const float4*>(a.in_bias + c + 4));
+        float4 x0[kUnits], x1[kUnits];
+        float2 st[kUnits];
+#pragma unroll
+        for (int i = 0; i < kUnits; ++i) {
+          if (ar + 16 * i >= win) continue;
+          const float* xr = a.x + static_cast<size_t>(src[i]) * a.Cin + c;
+          x0[i] = __ldg(reinterpret_cast<const float4*>(xr));
+          x1[i] = __ldg(reinterpret_cast<const float4*>(xr + 4));
+          st[i] = __ldg(a.stats + src[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kUnits; ++i) {
+          if (ar + 16 * i >= win) continue;
+          const float mu = st[i].x, rs = st[i].y;
+          v[i] = make_uint4(
+              pack_bf16x2((x0[i].x - mu) * (rs * s0.x) + o0.x,
+                          (x0[i].y - mu) * (rs * s0.y) + o0.y),
+              pack_bf16x2((x0[i].z - mu) * (rs * s0.z) + o0.z,
+                          (x0[i].w - mu) * (rs * s0.w) + o0.w),
+              pack_bf16x2((x1[i].x - mu) * (rs * s1.x) + o1.x,
+                          (x1[i].y - mu) * (rs * s1.y) + o1.y),
+              pack_bf16x2((x1[i].z - mu) * (rs * s1.z) + o1.z,
+                          (x1[i].w - mu) * (rs * s1.w) + o1.w));
+        }
+      } else {  // the ragged last chunk, or rows not 16-byte aligned
+#pragma unroll
+        for (int i = 0; i < kUnits; ++i)
+          if (ar + 16 * i < win) v[i] = load_a(a, src[i], c);
+      }
+      for (int tap = 0; tap < a.K; ++tap, ++kt) {
+        const int s = kt % kS;
+        if (kt >= kS) mbar_wait(empty(s), (kt / kS - 1) & 1);
+        if (tid == 0) {
+          mbar_arrive_expect_tx(full(s), kBBytes);
+#pragma unroll
+          for (int nb = 0; nb < NW; ++nb)
+            tma_load_3d(b_tile(s) + nb * (kBK * 128), &wmap, full(s), 64 * nb,
+                        chunk * kBK, tap);
+        }
+        unsigned char* at = ring_ptr + s * G::kStageBytes;
+#pragma unroll
+        for (int i = 0; i < kUnits; ++i) {
+          const int r = ar + 16 * i - tap;
+          if (r < 0 || r >= kBM) continue;
+          *reinterpret_cast<uint4*>(at + r * 128 + ((aj ^ (r & 7)) << 4)) =
+              (keep[i] >> tap) & 1u ? v[i] : make_uint4(0u, 0u, 0u, 0u);
+        }
+        // A was written through the generic proxy; wgmma reads through the
+        // async one.
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(full(s));
+      }
+    }
+  } else {
+    // Consumer warpgroups: columns wg * kN .. of the tile. At Cout = 64
+    // that is half of the one 64-column box (a 64-byte start offset inside
+    // the swizzle row, as the k16 steps of A take 32-byte offsets).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int ct = tid - kProducers, wg = ct >> 7;
+    const uint32_t b_col = (wg * kN / 64) * (kBK * 128) + (wg * kN % 64) * 2;
+    float acc[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+
+    for (int kt = 0; kt < a.n_k; ++kt) {
+      const int s = kt % kS;
+      mbar_wait(full(s), (kt / kS) & 1);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma<kN>(acc, make_desc(a_tile(s) + kk * 32, 16, 1024),
+                  make_desc(b_tile(s) + b_col + kk * 2048, kBK * 128, 1024));
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();  // tile kt - 1's products are done: release its slot
+      fence_acc(acc);
+      if (kt > 0 && (ct & 127) == 0) mbar_arrive(empty((kt - 1) % kS));
+    }
     wgmma_wait<0>();
     fence_acc(acc);
-  }
 
-  // Epilogue. acc[4 n8 + e] is row r0 (e < 2) or r0 + 8 (e >= 2), column
-  // col0 + 8 n8 + (e & 1) of the tile.
-  const int lane = tid & 31;
-  const int r0 = ((tid >> 5) & 3) * 16 + (lane >> 2);
-  const int col0 = wg * kN + (lane & 3) * 2;
-  float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
-#pragma unroll
-  for (int n8 = 0; n8 < kN / 8; ++n8) {
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(a.bias + col0 + 8 * n8));
-    acc[4 * n8] += bb.x;
-    acc[4 * n8 + 1] += bb.y;
-    acc[4 * n8 + 2] += bb.x;
-    acc[4 * n8 + 3] += bb.y;
-    s0 += acc[4 * n8] + acc[4 * n8 + 1];
-    q0 += acc[4 * n8] * acc[4 * n8] + acc[4 * n8 + 1] * acc[4 * n8 + 1];
-    s1 += acc[4 * n8 + 2] + acc[4 * n8 + 3];
-    q1 += acc[4 * n8 + 2] * acc[4 * n8 + 2] + acc[4 * n8 + 3] * acc[4 * n8 + 3];
-  }
-  if (a.use_norm) {
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-      q0 += __shfl_xor_sync(0xffffffffu, q0, o);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      q1 += __shfl_xor_sync(0xffffffffu, q1, o);
-    }
-    if ((lane & 3) == 0) {
-      xchg[wg * kBM + r0] = make_float2(s0, q0);
-      xchg[wg * kBM + r0 + 8] = make_float2(s1, q1);
-    }
-    __syncthreads();
-    const float2 o0 = xchg[(wg ^ 1) * kBM + r0];
-    const float2 o1 = xchg[(wg ^ 1) * kBM + r0 + 8];
-    const float inv_n = 1.0f / kCout;
-    const float mean0 = (s0 + o0.x) * inv_n, mean1 = (s1 + o1.x) * inv_n;
-    const float rstd0 = rsqrtf(fmaxf((q0 + o0.y) * inv_n - mean0 * mean0, 0.f) + kLnEps);
-    const float rstd1 = rsqrtf(fmaxf((q1 + o1.y) * inv_n - mean1 * mean1, 0.f) + kLnEps);
+    // Epilogue. acc[4 n8 + e] is row r0 (e < 2) or r0 + 8 (e >= 2),
+    // column col0 + 8 n8 + (e & 1) of the tile.
+    const int lane = ct & 31;
+    const int r0 = ((ct >> 5) & 3) * 16 + (lane >> 2);
+    const int col0 = wg * kN + (lane & 3) * 2;
+    float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
 #pragma unroll
     for (int n8 = 0; n8 < kN / 8; ++n8) {
-      const int c = col0 + 8 * n8;
-      const float2 sc = __ldg(reinterpret_cast<const float2*>(a.scale + c));
-      const float2 of = __ldg(reinterpret_cast<const float2*>(a.offset + c));
-      acc[4 * n8] = (acc[4 * n8] - mean0) * (rstd0 * sc.x) + of.x;
-      acc[4 * n8 + 1] = (acc[4 * n8 + 1] - mean0) * (rstd0 * sc.y) + of.y;
-      acc[4 * n8 + 2] = (acc[4 * n8 + 2] - mean1) * (rstd1 * sc.x) + of.x;
-      acc[4 * n8 + 3] = (acc[4 * n8 + 3] - mean1) * (rstd1 * sc.y) + of.y;
+      const float2 bb =
+          __ldg(reinterpret_cast<const float2*>(a.bias + col0 + 8 * n8));
+      acc[4 * n8] += bb.x;
+      acc[4 * n8 + 1] += bb.y;
+      acc[4 * n8 + 2] += bb.x;
+      acc[4 * n8 + 3] += bb.y;
+      s0 += acc[4 * n8] + acc[4 * n8 + 1];
+      q0 += acc[4 * n8] * acc[4 * n8] + acc[4 * n8 + 1] * acc[4 * n8 + 1];
+      s1 += acc[4 * n8 + 2] + acc[4 * n8 + 3];
+      q1 += acc[4 * n8 + 2] * acc[4 * n8 + 2] + acc[4 * n8 + 3] * acc[4 * n8 + 3];
+    }
+    if (a.use_norm) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        q0 += __shfl_xor_sync(0xffffffffu, q0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        q1 += __shfl_xor_sync(0xffffffffu, q1, o);
+      }
+      if ((lane & 3) == 0) {
+        xchg[wg * kBM + r0] = make_float2(s0, q0);
+        xchg[wg * kBM + r0 + 8] = make_float2(s1, q1);
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(2 * 128) : "memory");  // consumers
+      const float2 o0 = xchg[(wg ^ 1) * kBM + r0];
+      const float2 o1 = xchg[(wg ^ 1) * kBM + r0 + 8];
+      const float inv_n = 1.0f / kCout;
+      const float mean0 = (s0 + o0.x) * inv_n, mean1 = (s1 + o1.x) * inv_n;
+      const float rstd0 =
+          rsqrtf(fmaxf((q0 + o0.y) * inv_n - mean0 * mean0, 0.f) + kLnEps);
+      const float rstd1 =
+          rsqrtf(fmaxf((q1 + o1.y) * inv_n - mean1 * mean1, 0.f) + kLnEps);
+#pragma unroll
+      for (int n8 = 0; n8 < kN / 8; ++n8) {
+        const int c = col0 + 8 * n8;
+        const float2 sc = __ldg(reinterpret_cast<const float2*>(a.scale + c));
+        const float2 of = __ldg(reinterpret_cast<const float2*>(a.offset + c));
+        acc[4 * n8] = (acc[4 * n8] - mean0) * (rstd0 * sc.x) + of.x;
+        acc[4 * n8 + 1] = (acc[4 * n8 + 1] - mean0) * (rstd0 * sc.y) + of.y;
+        acc[4 * n8 + 2] = (acc[4 * n8 + 2] - mean1) * (rstd1 * sc.x) + of.x;
+        acc[4 * n8 + 3] = (acc[4 * n8 + 3] - mean1) * (rstd1 * sc.y) + of.y;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + r0 + 8 * h;
+      if (gm >= a.M) continue;
+      __nv_bfloat16* orow = a.out + static_cast<size_t>(gm) * kCout + col0;
+#pragma unroll
+      for (int n8 = 0; n8 < kN / 8; ++n8) {
+        float y0 = acc[4 * n8 + 2 * h], y1 = acc[4 * n8 + 2 * h + 1];
+        if (a.use_act) {
+          y0 = fmaxf(y0, 0.f);
+          y1 = fmaxf(y1, 0.f);
+        }
+        *reinterpret_cast<uint32_t*>(orow + 8 * n8) = pack_bf16x2(y0, y1);
+      }
     }
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int gm = m0 + r0 + 8 * h;
-    if (gm >= a.M) continue;
-    __nv_bfloat16* orow = a.out + static_cast<size_t>(gm) * kCout + col0;
-#pragma unroll
-    for (int n8 = 0; n8 < kN / 8; ++n8) {
-      float y0 = acc[4 * n8 + 2 * h], y1 = acc[4 * n8 + 2 * h + 1];
-      if (a.use_act) { y0 = fmaxf(y0, 0.f); y1 = fmaxf(y1, 0.f); }
-      *reinterpret_cast<uint32_t*>(orow + 8 * n8) = pack_bf16x2(y0, y1);
-    }
+}
+
+// The weight (K, Cin, Cout) bf16 as a 3-D TMA tensor map: boxes of 64
+// Cout columns (128 bytes, the swizzle span) x kBK channels of one tap,
+// 128-byte swizzle; channels past Cin read as zeros. The driver's encoder
+// is found through the runtime, so the build needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+cudaError_t weight_map(CUtensorMap* map, const void* w, int K, int Cin,
+                       int Cout) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Cout),
+                              static_cast<cuuint64_t>(Cin),
+                              static_cast<cuuint64_t>(K)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Cout) * 2,
+                                 static_cast<cuuint64_t>(Cin) * Cout * 2};
+  const cuuint32_t box[3] = {64, kBK, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int NW>
@@ -526,7 +627,10 @@ cudaError_t launch_nw(const StemArgs& a, int stages, int smem_bytes, int grid,
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  stem_kernel<NW><<<grid, kThreads, G::kSmemBytes, stream>>>(a);
+  CUtensorMap wmap;
+  const cudaError_t e = weight_map(&wmap, a.w, a.K, a.Cin, G::kCout);
+  if (e != cudaSuccess) return e;
+  stem_kernel<NW><<<grid, kThreads, G::kSmemBytes, stream>>>(wmap, a);
   return cudaGetLastError();
 }
 
@@ -536,7 +640,7 @@ cudaError_t launch_stem(const StemArgs& a, int cout, int rows, int depth,
                         int stages, int smem_bytes, int grid,
                         cudaStream_t stream) {
   if (rows != kBM || depth != kBK || grid != (a.M + kBM - 1) / kBM ||
-      a.K % 2 == 0)
+      a.K % 2 == 0 || a.K > kMaxK)
     return cudaErrorInvalidValue;
   switch (cout) {
     case 64: return launch_nw<1>(a, stages, smem_bytes, grid, stream);

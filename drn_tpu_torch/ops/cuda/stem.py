@@ -32,6 +32,7 @@ STEM_COUTS = (64, 128, 256, 512)
 TILE_ROWS = 64   # output rows of a block: one wgmma M
 TILE_DEPTH = 64  # channels of a k-tile: one 128-byte swizzle row of bf16
 MAX_STAGES = 8
+MAX_K = 17       # a producer thread holds the (rows + K - 1)-row window
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on an H100
 # LayerNorm row sums of both warpgroups, barriers, the ring's alignment.
 SMEM_FIXED = 2 * TILE_ROWS * 8 + 2 * MAX_STAGES * 8 + 1024
@@ -52,6 +53,9 @@ def stem_plan(m: int, cin: int, cout: int, k: int = 3) -> StemPlan:
     Cout bf16); as many stages as fit, at most MAX_STAGES."""
     if cout not in STEM_COUTS:
         raise ValueError(f"fused_stem: Cout={cout} not in {STEM_COUTS}")
+    if k % 2 == 0 or k > MAX_K:
+        raise ValueError(f"fused_stem: K={k}; the kernel takes odd K up to "
+                         f"{MAX_K}")
     stage = 2 * TILE_DEPTH * (TILE_ROWS + cout)
     stages = min(MAX_STAGES, (SMEM_LIMIT - SMEM_FIXED) // stage)
     return StemPlan(TILE_ROWS, TILE_DEPTH, stages,
@@ -74,7 +78,8 @@ def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
                use_act: bool = True):
     """relu(LN(conv1d(LN(x)·s_in + b_in, w, SAME) + b)·s_out + b_out).
 
-    x: (B, T, Cin) fp32 features, any Cin; w: (K, Cin, Cout) WIO, K odd.
+    x: (B, T, Cin) fp32 features, any Cin; w: (K, Cin, Cout) WIO, K odd
+    (up to MAX_K on CUDA).
     Output (B, T, Cout) in `cdtype`. On CUDA: cdtype and w bf16, every
     other input fp32.
     """

@@ -51,6 +51,7 @@ def test_plan_mirrors_the_cuda_source():
     assert _constant("kBK") == stem.TILE_DEPTH
     assert _constant("kMaxStages") == stem.MAX_STAGES
     assert _constant("kSmemLimit") == stem.SMEM_LIMIT
+    assert _constant("kMaxK") == stem.MAX_K
     for cout in stem.STEM_COUTS:
         assert f"wgmma<{cout // 2}>(float (&d)[{cout // 4}]" in HEADER
 
@@ -65,6 +66,7 @@ def test_ring_is_as_deep_as_fits(cout):
             or plan.smem_bytes + stage > stem.SMEM_LIMIT)
 
 
-def test_stem_plan_refuses_widths_not_built():
+@pytest.mark.parametrize("cout,k", [(96, 3), (512, 2), (512, 19)])
+def test_stem_plan_refuses_what_the_kernel_does_not_take(cout, k):
     with pytest.raises(ValueError):
-        stem.stem_plan(64, 4096, 96)
+        stem.stem_plan(64, 4096, cout, k)
