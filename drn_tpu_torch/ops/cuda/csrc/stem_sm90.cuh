@@ -56,10 +56,10 @@ constexpr int kBM = 64;                  // output rows per block
 constexpr int kBK = 64;                  // channels per k-tile: one 128-byte row
 constexpr int kProducers = 128;          // one producer warpgroup
 constexpr int kThreads = kProducers + 256;  // and two consumer warpgroups
-// Registers a thread after setmaxnreg: 128 x 120 + 256 x 192 <= 384 x 168,
+// Registers a thread after setmaxnreg: 128 x 136 + 256 x 184 <= 384 x 168,
 // the launch's allocation.
-constexpr int kProducerRegs = 120;
-constexpr int kConsumerRegs = 192;
+constexpr int kProducerRegs = 136;
+constexpr int kConsumerRegs = 184;
 constexpr int kUnits = 5;   // 16-byte A units a producer thread holds: 80 rows
 constexpr int kMaxK = 17;   // the window kBM + K - 1 fits 16 * kUnits rows
 constexpr int kMaxStages = 8;
@@ -407,27 +407,34 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (ts >= 0 && ts < a.T) keep[i] |= 1u << tap;
       }
     }
+    // The next chunk's window is fetched (x, row stats, scale and shift
+    // in registers) while this chunk's tap copies are stored.
     const int nkc = (a.Cin + kBK - 1) / kBK;
+    float4 x0[kUnits], x1[kUnits], s0, s1, o0, o1;
+    float2 st[kUnits];
+    auto fast = [&](int chunk) {  // 8 whole channels, 16-byte aligned rows
+      return (a.Cin & 3) == 0 && chunk * kBK + 8 * aj + 8 <= a.Cin;
+    };
+    auto fetch = [&](int chunk) {
+      const int c = chunk * kBK + 8 * aj;
+      s0 = __ldg(reinterpret_cast<const float4*>(a.in_scale + c));
+      s1 = __ldg(reinterpret_cast<const float4*>(a.in_scale + c + 4));
+      o0 = __ldg(reinterpret_cast<const float4*>(a.in_bias + c));
+      o1 = __ldg(reinterpret_cast<const float4*>(a.in_bias + c + 4));
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i) {
+        if (ar + 16 * i >= win) continue;
+        const float* xr = a.x + static_cast<size_t>(src[i]) * a.Cin + c;
+        x0[i] = __ldg(reinterpret_cast<const float4*>(xr));
+        x1[i] = __ldg(reinterpret_cast<const float4*>(xr + 4));
+        st[i] = __ldg(a.stats + src[i]);
+      }
+    };
+    if (nkc > 0 && fast(0)) fetch(0);
     int kt = 0;
     for (int chunk = 0; chunk < nkc; ++chunk) {
-      const int c = chunk * kBK + 8 * aj;
       uint4 v[kUnits] = {};
-      if ((a.Cin & 3) == 0 && c + 8 <= a.Cin) {
-        // Every load of the window in flight before any arithmetic.
-        const float4 s0 = __ldg(reinterpret_cast<const float4*>(a.in_scale + c));
-        const float4 s1 = __ldg(reinterpret_cast<const float4*>(a.in_scale + c + 4));
-        const float4 o0 = __ldg(reinterpret_cast<const float4*>(a.in_bias + c));
-        const float4 o1 = __ldg(reinterpret_cast<const float4*>(a.in_bias + c + 4));
-        float4 x0[kUnits], x1[kUnits];
-        float2 st[kUnits];
-#pragma unroll
-        for (int i = 0; i < kUnits; ++i) {
-          if (ar + 16 * i >= win) continue;
-          const float* xr = a.x + static_cast<size_t>(src[i]) * a.Cin + c;
-          x0[i] = __ldg(reinterpret_cast<const float4*>(xr));
-          x1[i] = __ldg(reinterpret_cast<const float4*>(xr + 4));
-          st[i] = __ldg(a.stats + src[i]);
-        }
+      if (fast(chunk)) {
 #pragma unroll
         for (int i = 0; i < kUnits; ++i) {
           if (ar + 16 * i >= win) continue;
@@ -443,10 +450,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                           (x1[i].w - mu) * (rs * s1.w) + o1.w));
         }
       } else {  // the ragged last chunk, or rows not 16-byte aligned
+        const int c = chunk * kBK + 8 * aj;
 #pragma unroll
         for (int i = 0; i < kUnits; ++i)
           if (ar + 16 * i < win) v[i] = load_a(a, src[i], c);
       }
+      if (chunk + 1 < nkc && fast(chunk + 1)) fetch(chunk + 1);
       for (int tap = 0; tap < a.K; ++tap, ++kt) {
         const int s = kt % kS;
         if (kt >= kS) mbar_wait(empty(s), (kt / kS - 1) & 1);
