@@ -25,10 +25,12 @@
 // tiles of all Cout columns; (2) the weight ring fed by TMA on mbarriers,
 // a producer warpgroup and two consumer warpgroups (setmaxnreg); (3a) each
 // chunk of x normalised once per block, its K tap-shifted copies stored
-// from registers. On an H100 (700 W) that is 0.218 ms at B = 48 (177
-// TFLOP/s; cuDNN's conv alone 0.191) and 0.737 ms at B = 384 (419 TFLOP/s;
-// cuDNN 0.739). Not built: the weight multicast over a 2-CTA cluster and
-// the Cout split that would fill more SMs at B = 48.
+// from registers, the next chunk's loads in flight meanwhile; (3c) at
+// Cout = 512, where the row tiles fill at most half the SMs (B = 48: 48
+// tiles), a 2-block cluster shares each tile and splits its columns, the
+// LayerNorm row sums crossing through distributed shared memory. Not
+// built: (3b) multicasting the weight over a cluster at B = 384, since
+// switching the weight's copies off altogether saved 9% there.
 #include "stem_sm90.cuh"
 
 namespace {
@@ -70,7 +72,7 @@ __global__ void row_stats_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// rows, depth, stages, smem_bytes, grid: the launch geometry of
+// rows, depth, split, stages, smem_bytes, grid: the launch geometry of
 // drn_tpu_torch/ops/cuda/stem.py::stem_plan, checked against this build.
 extern "C" int drn_fused_stem(const void* x, const void* in_scale,
                               const void* in_bias, const void* w,
@@ -78,7 +80,7 @@ extern "C" int drn_fused_stem(const void* x, const void* in_scale,
                               const void* out_bias, void* stats, void* out,
                               int B, int T, int Cin, int Cout, int K,
                               int use_norm, int use_act, int rows, int depth,
-                              int stages, int smem_bytes, int grid,
+                              int split, int stages, int smem_bytes, int grid,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T;
@@ -102,6 +104,6 @@ extern "C" int drn_fused_stem(const void* x, const void* in_scale,
   a.M = M; a.T = T; a.Cin = Cin; a.K = K;
   a.n_k = K * ((Cin + drn::kBK - 1) / drn::kBK);
   a.use_norm = use_norm; a.use_act = use_act;
-  return static_cast<int>(drn::launch_stem(a, Cout, rows, depth, stages,
-                                           smem_bytes, grid, st));
+  return static_cast<int>(drn::launch_stem(a, Cout, rows, depth, split,
+                                           stages, smem_bytes, grid, st));
 }

@@ -12,7 +12,10 @@
 // column, because the output LayerNorm needs whole rows. Two consumer
 // warpgroups take Cout/2 columns each (wgmma m64nNk16, N = Cout/2: 256,
 // 128, 64 or 32; the fp32 accumulator is N/2 registers a thread, 128 at
-// Cout = 512). The reduction runs over k-tiles of kBK = 64 channels of one
+// Cout = 512). Where the row tiles alone would leave SMs idle, a cluster
+// of two blocks shares a tile and splits its 512 columns (SPLIT = 2,
+// N = 128), exchanging the LayerNorm row sums through distributed shared
+// memory. The reduction runs over k-tiles of kBK = 64 channels of one
 // tap, chunk-outer and tap-inner, so the next taps re-read a chunk's rows
 // of x from L1. A tile may cross a video boundary: each row gathers input
 // row t - K/2 + tap of its own video, zero outside [0, T) (XLA SAME
@@ -26,12 +29,12 @@
 // As many stages as fit in 227 KB, at most 8 (3 at Cout = 512).
 //
 // Pipeline: warp-specialised. A producer warpgroup (setmaxnreg down to
-// kProducerRegs) fills the ring: one thread announces the weight tile's
+// Regs::kProducer) fills the ring: one thread announces the weight tile's
 // bytes on the slot's "full" mbarrier and copies it with TMA (3-D tensor
 // map over (K, Cin, Cout), 128-byte swizzle, zeros past Cin); all 128
 // gather, normalise, cast and store A (16-byte swizzled stores, two rows'
 // loads in flight at once), fence to the async proxy and arrive. The two
-// consumer warpgroups (setmaxnreg up to kConsumerRegs) wait on "full",
+// consumer warpgroups (setmaxnreg up to Regs::kConsumer) wait on "full",
 // issue the tile's four k16 wgmma, keep one group in flight, and release
 // the previous slot on its "empty" mbarrier.
 //
@@ -56,26 +59,33 @@ constexpr int kBM = 64;                  // output rows per block
 constexpr int kBK = 64;                  // channels per k-tile: one 128-byte row
 constexpr int kProducers = 128;          // one producer warpgroup
 constexpr int kThreads = kProducers + 256;  // and two consumer warpgroups
-// Registers a thread after setmaxnreg: 128 x 136 + 256 x 184 <= 384 x 168,
-// the launch's allocation.
-constexpr int kProducerRegs = 136;
-constexpr int kConsumerRegs = 184;
+// Registers a thread after setmaxnreg, within the launch's allocation:
+// 128 x 136 + 256 x 184 <= 384 x 168 where a consumer holds 128 fp32
+// accumulators, else 128 x 152 + 256 x 176.
+template <int ACC>
+struct Regs {
+  static constexpr int kProducer = ACC > 64 ? 136 : 152;
+  static constexpr int kConsumer = ACC > 64 ? 184 : 176;
+};
 constexpr int kUnits = 5;   // 16-byte A units a producer thread holds: 80 rows
 constexpr int kMaxK = 17;   // the window kBM + K - 1 fits 16 * kUnits rows
 constexpr int kMaxStages = 8;
 constexpr int kSmemLimit = 232448;       // 227 KB a block on an H100
 constexpr int kATileBytes = kBM * kBK * 2;
-constexpr int kXchgBytes = 2 * kBM * 8;  // (sum, sum of squares) per row and half
+// LayerNorm (sum, sum of squares) per row from each consumer warpgroup of
+// the (up to two) blocks that share a row tile.
+constexpr int kXchgBytes = 4 * kBM * 8;
 constexpr int kBarrierBytes = 2 * kMaxStages * 8;
 constexpr int kAlignSlack = 1024;        // the ring starts 1024-byte aligned
 constexpr int kFixedBytes = kXchgBytes + kBarrierBytes + kAlignSlack;
 constexpr float kLnEps = 1e-6f;          // flax.linen.LayerNorm default
 
-// Launch geometry for Cout = 64 * NW; drn_tpu_torch/ops/cuda/stem.py
-// (stem_plan) computes the same and passes it in, the entry point checks.
+// Launch geometry of a block that computes 64 * NW output columns;
+// drn_tpu_torch/ops/cuda/stem.py (stem_plan) computes the same and passes
+// it in, the entry point checks.
 template <int NW>
 struct Geometry {
-  static constexpr int kCout = 64 * NW;
+  static constexpr int kCout = 64 * NW;  // columns of one block
   static constexpr int kStageBytes = kATileBytes + kBK * kCout * 2;
   static constexpr int kFit = (kSmemLimit - kFixedBytes) / kStageBytes;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
@@ -125,6 +135,31 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "r"(parity)
       : "memory");
 }
+// Thread block clusters: this block's rank, a barrier over every thread
+// of the cluster (release / acquire: shared-memory writes before it, local
+// or remote, are seen after it), a float2 store into the peer's shared
+// memory at the same offset as `local`.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_peer(const void* local, uint32_t rank,
+                                        float2 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
 // One box of the weight's tensor map into shared memory, completion
 // counted in bytes on `bar`.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
@@ -349,23 +384,29 @@ __device__ __forceinline__ uint4 load_a(const StemArgs& a, int row, int c) {
   return r;
 }
 
-template <int NW>
+// SPLIT = 1: a block computes all Cout = 64 * NW columns of its 64 rows.
+// SPLIT = 2: a cluster of two blocks shares the row tile, block rank r
+// computes columns r * 64 * NW .. of Cout = 128 * NW (both stage the same
+// A; only the LayerNorm row sums cross, through distributed shared
+// memory): twice the blocks where the row tiles alone leave SMs idle.
+template <int NW, int SPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     stem_kernel(const __grid_constant__ CUtensorMap wmap, const StemArgs a) {
   using G = Geometry<NW>;
   constexpr int kS = G::kStages;
-  constexpr int kCout = G::kCout;
-  constexpr int kN = kCout / 2;  // columns of each consumer warpgroup
-  constexpr int kAcc = kN / 2;   // fp32 accumulators a consumer thread
-  constexpr uint32_t kBBytes = kBK * kCout * 2;
+  constexpr int kCout = G::kCout * SPLIT;  // the output row's width
+  constexpr int kN = G::kCout / 2;  // columns of each consumer warpgroup
+  constexpr int kAcc = kN / 2;      // fp32 accumulators a consumer thread
+  constexpr uint32_t kBBytes = kBK * G::kCout * 2;
   static_assert(kS >= 3, "the pipeline needs three stages");
+  static_assert(kN >= 32 && (SPLIT == 1 || SPLIT == 2), "no such wgmma");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
   unsigned char* ring_ptr = smem_raw + (ring - raw);
   float2* xchg = reinterpret_cast<float2*>(ring_ptr + kS * G::kStageBytes);
-  const uint32_t bars = smem_u32(xchg + 2 * kBM);
+  const uint32_t bars = smem_u32(xchg + 2 * SPLIT * kBM);
   auto full = [&](int s) { return bars + 8 * s; };          // tile s is in
   auto empty = [&](int s) { return bars + 8 * (kS + s); };  // slot s is read
   auto a_tile = [&](int s) { return ring + s * G::kStageBytes; };
@@ -379,8 +420,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  const int m0 = blockIdx.x * kBM;
+  // Both blocks of a cluster are running before either writes the other's
+  // shared memory.
+  if (SPLIT == 2) cluster_sync(); else __syncthreads();
+  const int m0 = blockIdx.x / SPLIT * kBM;
+  const int rank = SPLIT == 2 ? static_cast<int>(cluster_rank()) : 0;
+  const int col_base = rank * G::kCout;  // this block's first column
 
   if (tid < kProducers) {
     // Producer warpgroup. Thread 0 copies each weight tile with TMA. All
@@ -390,7 +435,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // each tap's A tile at row w - tap: the tap-shifted copies. keep[i]
     // bit tap says whether that tile row takes window row w (its own
     // video's input at time t - K/2 + tap lies in [0, T)) or zeros.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Regs<kAcc>::kProducer));
     const int aj = tid & 7, ar = tid >> 3;
     const int left = (a.K - 1) >> 1, win = kBM + a.K - 1;
     int src[kUnits];
@@ -463,8 +509,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_arrive_expect_tx(full(s), kBBytes);
 #pragma unroll
           for (int nb = 0; nb < NW; ++nb)
-            tma_load_3d(b_tile(s) + nb * (kBK * 128), &wmap, full(s), 64 * nb,
-                        chunk * kBK, tap);
+            tma_load_3d(b_tile(s) + nb * (kBK * 128), &wmap, full(s),
+                        col_base + 64 * nb, chunk * kBK, tap);
         }
         unsigned char* at = ring_ptr + s * G::kStageBytes;
 #pragma unroll
@@ -480,11 +526,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive(full(s));
       }
     }
+    if (SPLIT == 2) cluster_sync();  // the consumers' LayerNorm exchange
   } else {
-    // Consumer warpgroups: columns wg * kN .. of the tile. At Cout = 64
-    // that is half of the one 64-column box (a 64-byte start offset inside
-    // the swizzle row, as the k16 steps of A take 32-byte offsets).
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // Consumer warpgroups: columns wg * kN .. of the block's tile. At 64
+    // columns a block that is half of the one 64-column box (a 64-byte
+    // start offset inside the swizzle row, as the k16 steps of A take
+    // 32-byte offsets).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        Regs<kAcc>::kConsumer));
     const int ct = tid - kProducers, wg = ct >> 7;
     const uint32_t b_col = (wg * kN / 64) * (kBK * 128) + (wg * kN % 64) * 2;
     float acc[kAcc];
@@ -513,7 +562,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // column col0 + 8 n8 + (e & 1) of the tile.
     const int lane = ct & 31;
     const int r0 = ((ct >> 5) & 3) * 16 + (lane >> 2);
-    const int col0 = wg * kN + (lane & 3) * 2;
+    const int col0 = col_base + wg * kN + (lane & 3) * 2;
     float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
 #pragma unroll
     for (int n8 = 0; n8 < kN / 8; ++n8) {
@@ -536,19 +585,39 @@ __global__ void __launch_bounds__(kThreads, 1)
         s1 += __shfl_xor_sync(0xffffffffu, s1, o);
         q1 += __shfl_xor_sync(0xffffffffu, q1, o);
       }
+      // Each consumer warpgroup of the row tile (two, or four over a
+      // cluster) writes its partial sums to slot 2 * rank + wg, in this
+      // block and in the peer; all add every slot in the same order.
       if ((lane & 3) == 0) {
-        xchg[wg * kBM + r0] = make_float2(s0, q0);
-        xchg[wg * kBM + r0 + 8] = make_float2(s1, q1);
+        const int p = 2 * rank + wg;
+        xchg[p * kBM + r0] = make_float2(s0, q0);
+        xchg[p * kBM + r0 + 8] = make_float2(s1, q1);
+        if (SPLIT == 2) {
+          st_peer(xchg + p * kBM + r0, rank ^ 1, make_float2(s0, q0));
+          st_peer(xchg + p * kBM + r0 + 8, rank ^ 1, make_float2(s1, q1));
+        }
       }
+    }
+    if (SPLIT == 2)
+      cluster_sync();
+    else if (a.use_norm)
       asm volatile("bar.sync 1, %0;\n" ::"n"(2 * 128) : "memory");  // consumers
-      const float2 o0 = xchg[(wg ^ 1) * kBM + r0];
-      const float2 o1 = xchg[(wg ^ 1) * kBM + r0 + 8];
+    if (a.use_norm) {
+      s0 = q0 = s1 = q1 = 0.f;
+#pragma unroll
+      for (int p = 0; p < 2 * SPLIT; ++p) {
+        const float2 v0 = xchg[p * kBM + r0], v1 = xchg[p * kBM + r0 + 8];
+        s0 += v0.x;
+        q0 += v0.y;
+        s1 += v1.x;
+        q1 += v1.y;
+      }
       const float inv_n = 1.0f / kCout;
-      const float mean0 = (s0 + o0.x) * inv_n, mean1 = (s1 + o1.x) * inv_n;
+      const float mean0 = s0 * inv_n, mean1 = s1 * inv_n;
       const float rstd0 =
-          rsqrtf(fmaxf((q0 + o0.y) * inv_n - mean0 * mean0, 0.f) + kLnEps);
+          rsqrtf(fmaxf(q0 * inv_n - mean0 * mean0, 0.f) + kLnEps);
       const float rstd1 =
-          rsqrtf(fmaxf((q1 + o1.y) * inv_n - mean1 * mean1, 0.f) + kLnEps);
+          rsqrtf(fmaxf(q1 * inv_n - mean1 * mean1, 0.f) + kLnEps);
 #pragma unroll
       for (int n8 = 0; n8 < kN / 8; ++n8) {
         const int c = col0 + 8 * n8;
@@ -622,7 +691,7 @@ cudaError_t weight_map(CUtensorMap* map, const void* w, int K, int Cin,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int NW>
+template <int NW, int SPLIT>
 cudaError_t launch_nw(const StemArgs& a, int stages, int smem_bytes, int grid,
                       cudaStream_t stream) {
   using G = Geometry<NW>;
@@ -631,31 +700,46 @@ cudaError_t launch_nw(const StemArgs& a, int stages, int smem_bytes, int grid,
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        stem_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stem_kernel<NW, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         G::kSmemBytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   CUtensorMap wmap;
-  const cudaError_t e = weight_map(&wmap, a.w, a.K, a.Cin, G::kCout);
+  cudaError_t e = weight_map(&wmap, a.w, a.K, a.Cin, G::kCout * SPLIT);
   if (e != cudaSuccess) return e;
-  stem_kernel<NW><<<grid, kThreads, G::kSmemBytes, stream>>>(wmap, a);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = G::kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = SPLIT;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = SPLIT == 2 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, stem_kernel<NW, SPLIT>, wmap, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// The geometry computed by the caller (rows, depth, stages, shared-memory
-// bytes, grid) must be the one this source instantiates for Cout.
+// The geometry computed by the caller (rows, depth, split, stages,
+// shared-memory bytes, grid) must be the one this source instantiates.
 cudaError_t launch_stem(const StemArgs& a, int cout, int rows, int depth,
-                        int stages, int smem_bytes, int grid,
+                        int split, int stages, int smem_bytes, int grid,
                         cudaStream_t stream) {
-  if (rows != kBM || depth != kBK || grid != (a.M + kBM - 1) / kBM ||
-      a.K % 2 == 0 || a.K > kMaxK)
+  if (rows != kBM || depth != kBK || (split != 1 && split != 2) ||
+      grid != split * ((a.M + kBM - 1) / kBM) || a.K % 2 == 0 || a.K > kMaxK)
     return cudaErrorInvalidValue;
+  if (split == 2)  // built for the one width it was measured to help
+    return cout == 512 ? launch_nw<4, 2>(a, stages, smem_bytes, grid, stream)
+                       : cudaErrorInvalidValue;
   switch (cout) {
-    case 64: return launch_nw<1>(a, stages, smem_bytes, grid, stream);
-    case 128: return launch_nw<2>(a, stages, smem_bytes, grid, stream);
-    case 256: return launch_nw<4>(a, stages, smem_bytes, grid, stream);
-    case 512: return launch_nw<8>(a, stages, smem_bytes, grid, stream);
+    case 64: return launch_nw<1, 1>(a, stages, smem_bytes, grid, stream);
+    case 128: return launch_nw<2, 1>(a, stages, smem_bytes, grid, stream);
+    case 256: return launch_nw<4, 1>(a, stages, smem_bytes, grid, stream);
+    case 512: return launch_nw<8, 1>(a, stages, smem_bytes, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }

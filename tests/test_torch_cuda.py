@@ -113,6 +113,21 @@ def test_fused_stem_kernel(dev, cout, cin, t, use_norm):
                                fused_stem_reference(*args).float(), **TOL)
 
 
+@pytest.mark.parametrize("b", [66, 67])
+def test_fused_stem_kernel_at_the_split_boundary(dev, b):
+    """Cout 512 at 66 row tiles (split over a 2-block cluster on an
+    H100's 132 SMs) and 67 (one block a tile); both against the plain
+    version."""
+    cin, cout = 256, 512
+    x = _randn(dev, b, 64, cin, scale=3.0, dtype=torch.float32) + 0.5
+    args = (x, 1.0 + _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=7),
+            _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=8),
+            _randn(dev, 3, cin, cout, scale=(3 * cin) ** -0.5, seed=9),
+            *_epilogue(dev, cout), torch.bfloat16)
+    torch.testing.assert_close(fused_stem(*args).float(),
+                               fused_stem_reference(*args).float(), **TOL)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = _randn(dev, 2, 16, 64)
     w = _randn(dev, 3, 64, 64)

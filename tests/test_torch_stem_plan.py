@@ -34,8 +34,15 @@ def test_stem_plan_at_each_config(name, which):
     plan = stem.stem_plan(m, cin, cout, k)
     assert plan.smem_bytes <= 232_448
     assert plan.stages >= 3
-    # Tiles cover M exactly once: the last tile starts inside M.
-    assert plan.grid * plan.rows >= m > (plan.grid - 1) * plan.rows
+    # Each output column of each row once: `split` blocks share a row
+    # tile, each takes Cout / split columns (at least 64, a multiple of
+    # 64: whole 128-byte weight boxes), and the last tile starts inside M.
+    assert plan.split == 1 or (plan.split == 2 and cout == 512)
+    assert plan.grid % plan.split == 0
+    tiles = plan.grid // plan.split
+    assert tiles * plan.rows >= m > (tiles - 1) * plan.rows
+    # Split only where the doubled grid still fits the card's SMs.
+    assert plan.split == 1 or plan.grid <= stem.H100_SMS
     # The reduction covers every channel of every tap, none twice.
     assert plan.k_tiles == k * -(-cin // plan.depth)
     assert plan.k_tiles * plan.depth >= k * cin > (plan.k_tiles - k) * plan.depth
@@ -56,14 +63,26 @@ def test_plan_mirrors_the_cuda_source():
         assert f"wgmma<{cout // 2}>(float (&d)[{cout // 4}]" in HEADER
 
 
+@pytest.mark.parametrize("m", [64 * 48, 64 * 384])
 @pytest.mark.parametrize("cout", [64, 128, 256, 512])
-def test_ring_is_as_deep_as_fits(cout):
+def test_ring_is_as_deep_as_fits(cout, m):
     """One more stage would not fit in the block's shared memory (or the
-    ring is at its cap)."""
-    plan = stem.stem_plan(64, 4096, cout)
-    stage = 2 * plan.depth * (plan.rows + cout)
+    ring is at its cap), with and without the Cout split."""
+    plan = stem.stem_plan(m, 4096, cout)
+    stage = 2 * plan.depth * (plan.rows + cout // plan.split)
     assert (plan.stages == stem.MAX_STAGES
             or plan.smem_bytes + stage > stem.SMEM_LIMIT)
+
+
+def test_split_fills_the_card_at_the_eval_batch():
+    """The flagship eval step (B=48, T=64): 48 row tiles, split over 96
+    blocks; its training batch (B=384): 384 tiles, not split."""
+    assert stem.stem_plan(48 * 64, 4096, 512).grid == 96
+    assert stem.stem_plan(384 * 64, 4096, 512).grid == 384
+    assert stem.stem_plan(64 * 64, 256, 128).split == 1  # built for 512
+    # The boundary: 66 row tiles split over 132 SMs, 67 do not.
+    assert stem.stem_plan(66 * 64, 4096, 512).grid == 132
+    assert stem.stem_plan(67 * 64, 4096, 512).grid == 67
 
 
 @pytest.mark.parametrize("cout,k", [(96, 3), (512, 2), (512, 19)])
