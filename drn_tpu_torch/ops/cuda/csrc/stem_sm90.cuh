@@ -16,8 +16,8 @@
 // of two blocks shares a tile and splits its 512 columns (SPLIT = 2,
 // N = 128), exchanging the LayerNorm row sums through distributed shared
 // memory. The reduction runs over k-tiles of kBK = 64 channels of one
-// tap, chunk-outer and tap-inner, so the next taps re-read a chunk's rows
-// of x from L1. A tile may cross a video boundary: each row gathers input
+// tap, chunk-outer and tap-inner, so a chunk of x is read and normalised
+// once for all K taps. A tile may cross a video boundary: each row gathers input
 // row t - K/2 + tap of its own video, zero outside [0, T) (XLA SAME
 // padding for odd K) and past Cin.
 //
@@ -26,21 +26,25 @@
 // MN-major, read by wgmma with the transpose bit), both in the 128-byte
 // swizzled layout the wgmma descriptors name. B is Cout/64 boxes of 64
 // rows x 128 bytes; row r's 16-byte chunk j lives at chunk j ^ (r % 8).
-// As many stages as fit in 227 KB, at most 8 (3 at Cout = 512).
+// As many stages as fit in 227 KB, at most 8 (3 for a block of 512
+// columns, 5 for 256).
 //
 // Pipeline: warp-specialised. A producer warpgroup (setmaxnreg down to
 // Regs::kProducer) fills the ring: one thread announces the weight tile's
 // bytes on the slot's "full" mbarrier and copies it with TMA (3-D tensor
 // map over (K, Cin, Cout), 128-byte swizzle, zeros past Cin); all 128
-// gather, normalise, cast and store A (16-byte swizzled stores, two rows'
-// loads in flight at once), fence to the async proxy and arrive. The two
+// load a chunk's window of 64 + K - 1 rows of x once (every load in flight
+// together, the next chunk's while this one's copies are stored),
+// normalise and cast it in registers, store its K tap-shifted A tiles
+// (16-byte swizzled stores), fence to the async proxy and arrive. The two
 // consumer warpgroups (setmaxnreg up to Regs::kConsumer) wait on "full",
 // issue the tile's four k16 wgmma, keep one group in flight, and release
 // the previous slot on its "empty" mbarrier.
 //
 // Epilogue from the accumulator registers: + bias, row sums and sums of
 // squares reduced across the 4 lanes that share a row, exchanged between
-// the two warpgroups through shared memory, flax LayerNorm (fast variance
+// the warpgroups through shared memory (the peer block's too, over
+// distributed shared memory, when SPLIT = 2), flax LayerNorm (fast variance
 // clamped at 0, eps 1e-6), * scale + offset, ReLU, bf16 store. Each of
 // use_norm / use_act can be off (the backward's recompute).
 #pragma once
@@ -528,10 +532,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (SPLIT == 2) cluster_sync();  // the consumers' LayerNorm exchange
   } else {
-    // Consumer warpgroups: columns wg * kN .. of the block's tile. At 64
-    // columns a block that is half of the one 64-column box (a 64-byte
-    // start offset inside the swizzle row, as the k16 steps of A take
-    // 32-byte offsets).
+    // Consumer warpgroups: columns wg * kN .. of the block's tile. At Cout
+    // = 64 each takes half of the one 64-column box (a 64-byte start
+    // offset inside the swizzle row, as the k16 steps of A take 32-byte
+    // offsets).
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         Regs<kAcc>::kConsumer));
     const int ct = tid - kProducers, wg = ct >> 7;

@@ -50,17 +50,17 @@ class StemPlan(NamedTuple):
     stages: int      # k-tiles in the shared-memory ring
     smem_bytes: int  # dynamic shared memory per block
     grid: int        # blocks: split * ceil(M / rows)
-    k_tiles: int     # K * ceil(Cin / depth): the reduction loop's length
 
 
 def stem_plan(m: int, cin: int, cout: int, k: int = 3,
               sms: int = H100_SMS) -> StemPlan:
     """Launch geometry of the stem kernel for M = B·T rows on a card with
     `sms` SMs. At Cout 512 the columns of a row tile are split over two
-    blocks when twice the tiles still fit the SMs (measured on an H100:
-    12% faster at B=48; at Cout 128 it was 2.5% slower). Each ring stage holds one A tile (rows × depth bf16) and
-    one B tile (depth × the block's columns, bf16); as many stages as
-    fit, at most MAX_STAGES."""
+    blocks when twice the tiles still fit the SMs (on an H100 that was
+    faster at the eval step's B=48, and slower at Cout 128). Each ring
+    stage holds one A tile (rows × depth bf16) and one B tile (depth ×
+    the block's columns, bf16); as many stages as fit, at most
+    MAX_STAGES."""
     if cout not in STEM_COUTS:
         raise ValueError(f"fused_stem: Cout={cout} not in {STEM_COUTS}")
     if k % 2 == 0 or k > MAX_K:
@@ -71,8 +71,7 @@ def stem_plan(m: int, cin: int, cout: int, k: int = 3,
     stage = 2 * TILE_DEPTH * (TILE_ROWS + cout // split)
     stages = min(MAX_STAGES, (SMEM_LIMIT - SMEM_FIXED) // stage)
     return StemPlan(TILE_ROWS, TILE_DEPTH, split, stages,
-                    stages * stage + SMEM_FIXED, split * tiles,
-                    k * -(-cin // TILE_DEPTH))
+                    stages * stage + SMEM_FIXED, split * tiles)
 
 
 def fused_stem_reference(x, in_scale, in_bias, w, b, out_scale, out_bias,
@@ -122,7 +121,7 @@ def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
     rc = fn(x.data_ptr(), in_scale.data_ptr(), in_bias.data_ptr(),
             w.data_ptr(), b.data_ptr(), out_scale.data_ptr(),
             out_bias.data_ptr(), stats.data_ptr(), out.data_ptr(), bsz, t,
-            cin, cout, k, int(use_norm), int(use_act), *plan[:6],
+            cin, cout, k, int(use_norm), int(use_act), *plan,
             stream_of(x))
     if rc != 0:
         raise RuntimeError(f"fused_stem: CUDA error {rc} at launch")

@@ -43,9 +43,8 @@ def test_stem_plan_at_each_config(name, which):
     assert tiles * plan.rows >= m > (tiles - 1) * plan.rows
     # Split only where the doubled grid still fits the card's SMs.
     assert plan.split == 1 or plan.grid <= stem.H100_SMS
-    # The reduction covers every channel of every tap, none twice.
-    assert plan.k_tiles == k * -(-cin // plan.depth)
-    assert plan.k_tiles * plan.depth >= k * cin > (plan.k_tiles - k) * plan.depth
+    # Whole 128-byte swizzle rows of bf16 for the k-tile, whole wgmma M.
+    assert plan.depth * 2 == 128 and plan.rows == 64
 
 
 def _constant(name):
@@ -89,3 +88,16 @@ def test_split_fills_the_card_at_the_eval_batch():
 def test_stem_plan_refuses_what_the_kernel_does_not_take(cout, k):
     with pytest.raises(ValueError):
         stem.stem_plan(64, 4096, cout, k)
+
+
+def test_stem_parts_switches_apply_to_the_kernel_source(tmp_path):
+    """probes/stem_parts.py compiles parts of the kernel out by rewriting a
+    copy of its source; every rewrite must find its text exactly once."""
+    from drn_tpu_torch.ops.cuda import _build
+    from drn_tpu_torch.probes import stem_parts
+
+    stem_parts.patched_source(_build.CSRC, tmp_path)
+    text = (tmp_path / "stem_sm90.cuh").read_text()
+    assert text.count("STEM_OFF") == 7
+    assert (tmp_path / "stem.cu").read_text() == (
+        _build.CSRC / "stem.cu").read_text()
