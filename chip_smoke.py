@@ -244,7 +244,8 @@ def kernel_phase(cfg, dev):
                 library_conv(xn, w, 3, 1), flops,
                 4 * x.numel() + 8 * cin + 2 * w.numel() + 2 * b * t * cout
                 + (12 if use_norm else 4) * cout)
-        rows[-1].update(blocks=stem.stem_plan(b * t, cin, cout).grid,
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        rows[-1].update(blocks=stem.stem_plan(b * t, cin, cout, 3, sms).grid,
                         tflops=flops / rows[-1]["ms"] / 1e9)
 
     fwd = [s[1:] for s in flagship_conv_sites(cfg)]

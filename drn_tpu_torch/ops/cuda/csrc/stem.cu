@@ -30,7 +30,7 @@
 // tiles), a 2-block cluster shares each tile and splits its columns, the
 // LayerNorm row sums crossing through distributed shared memory. Not
 // built: (3b) multicasting the weight over a cluster at B = 384, where
-// switching the weight's copies off altogether saves 15%
+// switching the weight's copies off altogether saves 15-17%
 // (probes/stem_parts.py).
 #include "stem_sm90.cuh"
 

@@ -84,6 +84,18 @@ constexpr int kAlignSlack = 1024;        // the ring starts 1024-byte aligned
 constexpr int kFixedBytes = kXchgBytes + kBarrierBytes + kAlignSlack;
 constexpr float kLnEps = 1e-6f;          // flax.linen.LayerNorm default
 
+// Parts compiled out, for a breakdown of the kernel's time
+// (drn_tpu_torch/probes/stem_parts.py builds with -DSTEM_OFF=1..7): bit 1
+// the producer's A staging, 2 the weight's TMA copies, 4 the consumers'
+// wgmma. Such a build computes nothing useful. 0, the default, is the
+// kernel.
+#ifndef STEM_OFF
+#define STEM_OFF 0
+#endif
+constexpr bool kStageA = !(STEM_OFF & 1);
+constexpr bool kCopyB = !(STEM_OFF & 2);
+constexpr bool kMma = !(STEM_OFF & 4);
+
 // Launch geometry of a block that computes 64 * NW output columns;
 // drn_tpu_torch/ops/cuda/stem.py (stem_plan) computes the same and passes
 // it in, the entry point checks.
@@ -348,38 +360,21 @@ __device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t da,
 }
 
 // 8 channels c..c+7 of input row `row`, LayerNorm'd, scaled, shifted and
-// cast to bf16: 16 bytes of A, channel by channel where rows are not
-// 16-byte aligned; zero past Cin (the in_bias term included).
+// cast to bf16, channel by channel: 16 bytes of A for the chunks the
+// producer's float4 path does not take (the ragged last one, rows not
+// 16-byte aligned); zero past Cin (the in_bias term included).
 __device__ __forceinline__ uint4 load_a(const StemArgs& a, int row, int c) {
   uint4 r = make_uint4(0u, 0u, 0u, 0u);
   if (c >= a.Cin) return r;
   const float2 st = __ldg(a.stats + row);
   const float* xr = a.x + static_cast<size_t>(row) * a.Cin;
   float f[8];
-  if ((a.Cin & 3) == 0) {  // 16-byte aligned rows: float4 loads
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int cc = c + 4 * h;
-      if (cc < a.Cin) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(xr + cc));
-        const float4 s = __ldg(reinterpret_cast<const float4*>(a.in_scale + cc));
-        const float4 o = __ldg(reinterpret_cast<const float4*>(a.in_bias + cc));
-        f[4 * h + 0] = (x.x - st.x) * (st.y * s.x) + o.x;
-        f[4 * h + 1] = (x.y - st.x) * (st.y * s.y) + o.y;
-        f[4 * h + 2] = (x.z - st.x) * (st.y * s.z) + o.z;
-        f[4 * h + 3] = (x.w - st.x) * (st.y * s.w) + o.w;
-      } else {
-        f[4 * h + 0] = f[4 * h + 1] = f[4 * h + 2] = f[4 * h + 3] = 0.f;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int ch = c + j;
-      f[j] = ch < a.Cin ? (__ldg(xr + ch) - st.x) * (st.y * __ldg(a.in_scale + ch))
-                              + __ldg(a.in_bias + ch)
-                        : 0.f;
-    }
+  for (int j = 0; j < 8; ++j) {
+    const int ch = c + j;
+    f[j] = ch < a.Cin ? (__ldg(xr + ch) - st.x) * (st.y * __ldg(a.in_scale + ch))
+                            + __ldg(a.in_bias + ch)
+                      : 0.f;
   }
   r.x = pack_bf16x2(f[0], f[1]);
   r.y = pack_bf16x2(f[2], f[3]);
@@ -480,11 +475,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         st[i] = __ldg(a.stats + src[i]);
       }
     };
-    if (nkc > 0 && fast(0)) fetch(0);
+    if (kStageA && nkc > 0 && fast(0)) fetch(0);
     int kt = 0;
     for (int chunk = 0; chunk < nkc; ++chunk) {
       uint4 v[kUnits] = {};
-      if (fast(chunk)) {
+      if (!kStageA) {  // compiled out: the tiles keep what they held
+      } else if (fast(chunk)) {
 #pragma unroll
         for (int i = 0; i < kUnits; ++i) {
           if (ar + 16 * i >= win) continue;
@@ -505,11 +501,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < kUnits; ++i)
           if (ar + 16 * i < win) v[i] = load_a(a, src[i], c);
       }
-      if (chunk + 1 < nkc && fast(chunk + 1)) fetch(chunk + 1);
+      if (kStageA && chunk + 1 < nkc && fast(chunk + 1)) fetch(chunk + 1);
       for (int tap = 0; tap < a.K; ++tap, ++kt) {
         const int s = kt % kS;
         if (kt >= kS) mbar_wait(empty(s), (kt / kS - 1) & 1);
-        if (tid == 0) {
+        if (tid == 0 && !kCopyB) mbar_arrive(full(s));
+        if (tid == 0 && kCopyB) {
           mbar_arrive_expect_tx(full(s), kBBytes);
 #pragma unroll
           for (int nb = 0; nb < NW; ++nb)
@@ -518,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         unsigned char* at = ring_ptr + s * G::kStageBytes;
 #pragma unroll
-        for (int i = 0; i < kUnits; ++i) {
+        for (int i = 0; i < (kStageA ? kUnits : 0); ++i) {
           const int r = ar + 16 * i - tap;
           if (r < 0 || r >= kBM) continue;
           *reinterpret_cast<uint4*>(at + r * 128 + ((aj ^ (r & 7)) << 4)) =
@@ -550,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
+      for (int kk = 0; kk < (kMma ? kBK / 16 : 0); ++kk)
         wgmma<kN>(acc, make_desc(a_tile(s) + kk * 32, 16, 1024),
                   make_desc(b_tile(s) + b_col + kk * 2048, kBK * 128, 1024));
       wgmma_commit();

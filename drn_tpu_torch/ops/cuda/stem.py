@@ -38,7 +38,7 @@ MAX_STAGES = 8
 MAX_K = 17       # a producer thread holds the (rows + K - 1)-row window
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on an H100
 # LayerNorm row sums of up to four warpgroups, barriers, the ring's
-# alignment.
+# alignment (kFixedBytes).
 SMEM_FIXED = 4 * TILE_ROWS * 8 + 2 * MAX_STAGES * 8 + 1024
 H100_SMS = 132
 

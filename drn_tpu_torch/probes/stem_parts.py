@@ -3,12 +3,12 @@
     python -m drn_tpu_torch.probes.stem_parts             # this tree's parts
     python -m drn_tpu_torch.probes.stem_parts --trees A B  # whole kernels
 
-Parts: csrc/stem.cu is built again from a copy of its sources in which
-whole parts of the kernel are compiled out (`STEM_OFF` bits: 1 the
-producer's A staging, 2 the weight's TMA copies, 4 the consumers'
+Parts: csrc/stem.cu is built again with whole parts of the kernel
+compiled out (`-DSTEM_OFF=n`, the guards in csrc/stem_sm90.cuh; bits: 1
+the producer's A staging, 2 the weight's TMA copies, 4 the consumers'
 wgmma), each combination timed through the package's own `fused_stem`
-with that library in place of the real one. The copies compute nothing
-useful; only their times mean something.
+with that library in place of the real one. Those builds compute
+nothing useful; only their times mean something.
 
 Trees: the whole `fused_stem` of each directory given (a checkout of the
 repository, e.g. `git archive` of an earlier commit), each run in a
@@ -24,35 +24,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 SHAPES = ((48, 64, 4096, 512), (384, 64, 4096, 512))
-
-# (text in csrc/stem_sm90.cuh, the same with a part compiled out).
-PATCHES = (
-    ("    if (nkc > 0 && fast(0)) fetch(0);",
-     "    if (!(STEM_OFF & 1) && nkc > 0 && fast(0)) fetch(0);"),
-    ("      if (fast(chunk)) {",
-     "      if (STEM_OFF & 1) {\n      } else if (fast(chunk)) {"),
-    ("      if (chunk + 1 < nkc && fast(chunk + 1)) fetch(chunk + 1);",
-     "      if (!(STEM_OFF & 1) && chunk + 1 < nkc && fast(chunk + 1))\n"
-     "        fetch(chunk + 1);"),
-    ("#pragma unroll\n        for (int i = 0; i < kUnits; ++i) {\n"
-     "          const int r = ar + 16 * i - tap;",
-     "#pragma unroll\n        for (int i = 0; i < kUnits * !(STEM_OFF & 1); ++i) {\n"
-     "          const int r = ar + 16 * i - tap;"),
-    ("        if (tid == 0) {\n          mbar_arrive_expect_tx(full(s), kBBytes);",
-     "        if (tid == 0 && (STEM_OFF & 2)) mbar_arrive(full(s));\n"
-     "        if (tid == 0 && !(STEM_OFF & 2)) {\n"
-     "          mbar_arrive_expect_tx(full(s), kBBytes);"),
-    ("      for (int kk = 0; kk < kBK / 16; ++kk)\n        wgmma<kN>(",
-     "      for (int kk = 0; kk < kBK / 16 * !(STEM_OFF & 4); ++kk)\n"
-     "        wgmma<kN>("),
-)
 
 # One process per tree: the tree's own package, the same inputs.
 TIMER = """
@@ -72,17 +49,12 @@ for b, t, cin, cout in %r:
 """
 
 
-def patched_source(csrc: Path, dst: Path) -> None:
-    """csrc's sources into dst, stem_sm90.cuh with the STEM_OFF switches."""
-    for p in csrc.glob("*.cu*"):
-        shutil.copy(p, dst / p.name)
-    text = (csrc / "stem_sm90.cuh").read_text()
-    for old, new in PATCHES:
-        if text.count(old) != 1:
-            raise RuntimeError(f"stem_parts: the kernel source changed; "
-                               f"update PATCHES ({old.strip()[:40]!r})")
-        text = text.replace(old, new)
-    (dst / "stem_sm90.cuh").write_text(text)
+def nvcc_args(off: int, out: Path) -> list:
+    """nvcc's arguments for csrc/stem.cu as the package builds it, with the
+    parts of bit mask `off` compiled out, into the library `out`."""
+    from drn_tpu_torch.ops.cuda import _build
+    return [*_build.NVCC_FLAGS, f"-DSTEM_OFF={off}", "-o", str(out),
+            str(_build.CSRC / "stem.cu")]
 
 
 def parts() -> None:
@@ -92,11 +64,9 @@ def parts() -> None:
     from drn_tpu_torch.utils.profiling import cuda_time_ms
 
     with tempfile.TemporaryDirectory() as tmp:
-        src = Path(tmp)
-        patched_source(_build.CSRC, src)
+        libs = Path(tmp)
         procs = {off: subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DSTEM_OFF={off}", "-o",
-             str(src / f"off{off}.so"), str(src / "stem.cu")],
+            [_build._nvcc(), *nvcc_args(off, libs / f"off{off}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for off in range(8)}
         for off, p in procs.items():
@@ -114,7 +84,7 @@ def parts() -> None:
                 ms = {}
                 for off in range(8):
                     _build._LIBS["stem"] = ctypes.CDLL(
-                        str(src / f"off{off}.so"))
+                        str(libs / f"off{off}.so"))
                     with torch.no_grad():
                         ms[off] = cuda_time_ms(lambda: stem.fused_stem(*args))
                 print(json.dumps(dict(B=b, T=t, Cin=cin, Cout=cout,

@@ -33,7 +33,7 @@ from drn_tpu_torch.ops.cuda.conv_block import conv_ln_relu_reference
 from drn_tpu_torch.ops.cuda.fused_fusion import (fused_fusion,
                                                  fused_fusion_block_reference,
                                                  fused_fusion_reference)
-from drn_tpu_torch.ops.cuda.stem import fused_stem_reference
+from drn_tpu_torch.ops.cuda.stem import fused_stem_reference, stem_plan
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1 / 64, rtol=1 / 64)
@@ -113,12 +113,15 @@ def test_fused_stem_kernel(dev, cout, cin, t, use_norm):
                                fused_stem_reference(*args).float(), **TOL)
 
 
-@pytest.mark.parametrize("b", [66, 67])
-def test_fused_stem_kernel_at_the_split_boundary(dev, b):
-    """Cout 512 at 66 row tiles (split over a 2-block cluster on an
-    H100's 132 SMs) and 67 (one block a tile); both against the plain
-    version."""
+@pytest.mark.parametrize("split", [2, 1])
+def test_fused_stem_kernel_at_the_split_boundary(dev, split):
+    """Cout 512 at the most row tiles that are still split over a 2-block
+    cluster (half the card's SMs) and at one more (one block a tile);
+    both against the plain version."""
     cin, cout = 256, 512
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b = sms // 2 + (split == 1)  # one 64-row tile a video
+    assert stem_plan(b * 64, cin, cout, 3, sms).split == split
     x = _randn(dev, b, 64, cin, scale=3.0, dtype=torch.float32) + 0.5
     args = (x, 1.0 + _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=7),
             _randn(dev, cin, scale=0.1, dtype=torch.float32, seed=8),

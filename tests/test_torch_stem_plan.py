@@ -47,19 +47,42 @@ def test_stem_plan_at_each_config(name, which):
     assert plan.depth * 2 == 128 and plan.rows == 64
 
 
-def _constant(name):
-    return int(re.search(rf"constexpr int {name} = (\d+);", HEADER).group(1))
+def _c_constants(text, pattern, known):
+    """Values of the `pattern` (name, expression) definitions in the CUDA
+    source, each expression evaluated over the integers defined before it
+    (C's `/` of positive ints is Python's `//`)."""
+    env = dict(known)
+    for name, expr in re.findall(pattern, text, re.M):
+        env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    return env
+
+
+C = _c_constants(HEADER, r"^constexpr int (\w+) = ([^;]+);", {})
 
 
 def test_plan_mirrors_the_cuda_source():
-    """stem_plan's constants are the ones stem_sm90.cuh is compiled with."""
-    assert _constant("kBM") == stem.TILE_ROWS
-    assert _constant("kBK") == stem.TILE_DEPTH
-    assert _constant("kMaxStages") == stem.MAX_STAGES
-    assert _constant("kSmemLimit") == stem.SMEM_LIMIT
-    assert _constant("kMaxK") == stem.MAX_K
+    """stem_plan's constants and sizes are the ones stem_sm90.cuh is
+    compiled with: its tile, ring cap, limits, the shared memory a block
+    keeps beside the ring, and each width's stage bytes, stages and
+    total (struct Geometry), which the entry point checks at launch."""
+    assert C["kBM"] == stem.TILE_ROWS
+    assert C["kBK"] == stem.TILE_DEPTH
+    assert C["kMaxStages"] == stem.MAX_STAGES
+    assert C["kSmemLimit"] == stem.SMEM_LIMIT
+    assert C["kMaxK"] == stem.MAX_K
+    assert C["kFixedBytes"] == stem.SMEM_FIXED
+    geometry = HEADER[HEADER.index("struct Geometry {"):]
+    geometry = geometry[:geometry.index("};")]
     for cout in stem.STEM_COUTS:
         assert f"wgmma<{cout // 2}>(float (&d)[{cout // 4}]" in HEADER
+        for split in (1, 2) if cout == 512 else (1,):
+            g = _c_constants(geometry, r"static constexpr int (kCout|kStageBytes"
+                             r"|kFit) = ([^;]+);", {**C, "NW": cout // split // 64})
+            m = 64 * (stem.H100_SMS // 2 if split == 2 else stem.H100_SMS)
+            plan = stem.stem_plan(m, 4096, cout)
+            assert plan.split == split
+            assert plan.stages == min(g["kFit"], C["kMaxStages"])
+            assert plan.smem_bytes == plan.stages * g["kStageBytes"] + C["kFixedBytes"]
 
 
 @pytest.mark.parametrize("m", [64 * 48, 64 * 384])
@@ -91,13 +114,18 @@ def test_stem_plan_refuses_what_the_kernel_does_not_take(cout, k):
 
 
 def test_stem_parts_switches_apply_to_the_kernel_source(tmp_path):
-    """probes/stem_parts.py compiles parts of the kernel out by rewriting a
-    copy of its source; every rewrite must find its text exactly once."""
+    """probes/stem_parts.py builds the package's own stem.cu with
+    -DSTEM_OFF=n; the kernel guards each part with the bit the probe names
+    and builds whole (STEM_OFF 0) by default."""
     from drn_tpu_torch.ops.cuda import _build
     from drn_tpu_torch.probes import stem_parts
 
-    stem_parts.patched_source(_build.CSRC, tmp_path)
-    text = (tmp_path / "stem_sm90.cuh").read_text()
-    assert text.count("STEM_OFF") == 7
-    assert (tmp_path / "stem.cu").read_text() == (
-        _build.CSRC / "stem.cu").read_text()
+    for off in range(8):
+        args = stem_parts.nvcc_args(off, tmp_path / "lib.so")
+        assert args[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+        assert f"-DSTEM_OFF={off}" in args
+        assert args[-1] == str(_build.CSRC / "stem.cu")
+    assert "#ifndef STEM_OFF\n#define STEM_OFF 0\n#endif" in HEADER
+    for part, bit in (("kStageA", 1), ("kCopyB", 2), ("kMma", 4)):
+        assert f"constexpr bool {part} = !(STEM_OFF & {bit});" in HEADER
+        assert HEADER.count(part) >= 2  # defined and used
