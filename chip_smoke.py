@@ -17,8 +17,9 @@ non-zero exit code:
               (bf16 tolerance below), and timed with CUDA events over a
               CUDA graph of back-to-back launches: the kernel, its plain
               version, and `F.conv1d` of the same conv as a yardstick (the
-              port never calls it). The stem's rows also carry their grid
-              (`blocks`) and achieved `tflops`.
+              port never calls it). The stem's and conv_ln_relu's rows also
+              carry their grid (`blocks`) and achieved `tflops`,
+              conv_ln_relu's also the cluster `split` of its columns.
   3. main     `build_model` + `evaluate()` at the flagship width (D=512,
               F=4096, T=64, 3 levels) on the synthetic fixture, 3 batches of
               48 (the last one ragged); the launch counts of that run; the
@@ -101,28 +102,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def flagship_conv_sites(cfg):
-    """(site, T_in, Cin, K, stride, use_norm, use_act) of every conv_ln_relu
-    launch of one eval step, in model order."""
-    m, t = cfg.model, cfg.data.num_clips
-    d = m.hidden_dim
-    sizes = [t // 2 ** l for l in range(m.num_levels)]
-    sites, t_in = [], t
-    for l in range(m.num_levels):
-        sites.append((f"level_{l}", t_in, d, 3, 1 if l == 0 else 2, True, True))
-        t_in = sizes[l]
-    sites += [(f"lateral_{l}", s, d, 1, 1, True, False)
-              for l, s in enumerate(sizes)]
-    sites += [(f"smooth_{l}", s, d, 3, 1, True, True)
-              for l, s in enumerate(sizes)]
-    gap_t = sum(sizes) + m.num_levels - 1  # the towers' gap-padded concat
-    sites += [(f"{tw}_tower_{i}", gap_t, d, 3, 1, True, True)
-              for i in range(m.head_tower_layers) for tw in ("loc", "match")]
-    sites += [(f"iou_mix_{i}", sum(sizes), 3 * d if i == 0 else d, 1, 1, True,
-               True) for i in range(m.iou_head_layers)]
-    return sites
-
-
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -141,6 +120,7 @@ def kernel_phase(cfg, dev):
     import torch
     import torch.nn.functional as F
 
+    from drn_tpu_torch.models.drn import conv_block_sites
     from drn_tpu_torch.ops.cuda import conv_block, fused_fusion, stem
     from drn_tpu_torch.utils.profiling import cuda_time_ms
 
@@ -148,6 +128,7 @@ def kernel_phase(cfg, dev):
     t0, fdim = cfg.data.num_clips, cfg.model.feature_dim
     level_ts = [t0 // 2 ** l for l in range(cfg.model.num_levels)]
     rng = np.random.default_rng(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         a = rng.standard_normal(shape).astype(np.float32) * scale
@@ -189,22 +170,26 @@ def kernel_phase(cfg, dev):
 
     def conv_rows(path, b, counts):
         """conv_ln_relu: one row per distinct shape, with its launches per
-        step."""
+        step, its grid (`blocks`), the cluster split of its columns and its
+        achieved TFLOP/s."""
         for (t, cin, k, stride, use_norm, use_act), n in counts.items():
             x = randn(b, t, cin)
             w = randn(k, cin, d, scale=1 / math.sqrt(k * cin))
             bias, scale, offset = epilogue_params(d)
             args = (x, w, bias, scale, offset, stride, use_norm, use_act)
             t_out = conv_block.same_padding(t, k, stride)[0]
+            flops = 2 * b * t_out * k * cin * d
             measure(path, "conv_ln_relu",
                     dict(B=b, T=t, Cin=cin, Cout=d, K=k, stride=stride,
                          use_norm=use_norm, use_act=use_act), n,
                     lambda: conv_block.conv_ln_relu(*args),
                     lambda: conv_block.conv_ln_relu_reference(*args),
-                    library_conv(x, w, k, stride),
-                    2 * b * t_out * k * cin * d,
+                    library_conv(x, w, k, stride), flops,
                     2 * (x.numel() + w.numel() + b * t_out * d)
                     + (12 if use_norm else 4) * d)
+            plan = conv_block.conv_plan(b * t_out, d, sms)
+            rows[-1].update(blocks=plan.grid, split=plan.split,
+                            tflops=flops / rows[-1]["ms"] / 1e9)
 
     def fusion_rows(path, b, epilogue):
         """fused_fusion_block (epilogue) or fused_fusion: one launch per
@@ -244,11 +229,10 @@ def kernel_phase(cfg, dev):
                 library_conv(xn, w, 3, 1), flops,
                 4 * x.numel() + 8 * cin + 2 * w.numel() + 2 * b * t * cout
                 + (12 if use_norm else 4) * cout)
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         rows[-1].update(blocks=stem.stem_plan(b * t, cin, cout, 3, sms).grid,
                         tflops=flops / rows[-1]["ms"] / 1e9)
 
-    fwd = [s[1:] for s in flagship_conv_sites(cfg)]
+    fwd = [s[1:] for s in conv_block_sites(cfg.model, t0)]
     b = cfg.eval.batch_size
     conv_rows("eval", b, Counter(fwd))
     fusion_rows("eval", b, True)

@@ -47,6 +47,31 @@ def location_metadata(cfg: ModelConfig, base_len: int, device=None):
             torch.as_tensor(level_ids, device=device))
 
 
+def conv_block_sites(cfg: ModelConfig, base_len: int):
+    """Every `conv_ln_relu` launch of one forward, in model order: (site,
+    T_in, Cin, K, stride, use_norm, use_act). Backbone levels (strides 1,
+    2, 2, ...), FPN laterals (k=1, no ReLU) and smooths, the head towers
+    on the gap-padded concat of the levels, the IoU head's k=1 mixes."""
+    d = cfg.hidden_dim
+    sizes = [base_len // 2 ** l for l in range(cfg.num_levels)]
+    sites, t_in = [], base_len
+    for l in range(cfg.num_levels):
+        sites.append((f"level_{l}", t_in, d, 3, 1 if l == 0 else 2, True,
+                      True))
+        t_in = sizes[l]
+    sites += [(f"lateral_{l}", s, d, 1, 1, True, False)
+              for l, s in enumerate(sizes)]
+    sites += [(f"smooth_{l}", s, d, 3, 1, True, True)
+              for l, s in enumerate(sizes)]
+    gap_t = sum(sizes) + cfg.num_levels - 1
+    sites += [(f"{tw}_tower_{i}", gap_t, d, 3, 1, True, True)
+              for tw in ("loc", "match")
+              for i in range(cfg.head_tower_layers)]
+    sites += [(f"iou_mix_{i}", sum(sizes), 3 * d if i == 0 else d, 1, 1, True,
+               True) for i in range(cfg.iou_head_layers)]
+    return sites
+
+
 class DRN(nn.Module):
     def __init__(self, cfg: ModelConfig, base_len: int,
                  ops: Ops = KERNEL_OPS):

@@ -1,10 +1,18 @@
 """conv1d + bias + LayerNorm + ReLU in one kernel: the port of
 `drn_tpu/ops/pallas/conv_block.py::conv_ln_relu`.
 
-`conv_ln_relu` launches the CUDA kernel (csrc/conv_block.cu, built on first
-use) for a CUDA tensor and calls `conv_ln_relu_reference`, its plain
-PyTorch version, for a CPU tensor. Nothing else chooses between them, and
-a CUDA tensor the kernel does not take raises: there is no fallback.
+`conv_ln_relu` launches the CUDA kernel (csrc/conv_block.cu on
+csrc/conv_sm90.cuh, built on first use) for a CUDA tensor and calls
+`conv_ln_relu_reference`, its plain PyTorch version, for a CPU tensor.
+Nothing else chooses between them, and a CUDA tensor the kernel does not
+take raises: there is no fallback.
+
+The kernel owns 64 output rows and all Cout columns a block (wgmma, a TMA
+weight ring, A gathered row by row). `conv_plan` decides what the C source
+cannot see, the card's SM count: where the row tiles alone would leave
+SMs idle, a cluster of 2 or 4 blocks shares each tile and splits its 512
+columns. The entry point derives everything else (stages, shared memory)
+itself and refuses a split or grid it does not build.
 
 Layout as in the JAX package: activations (B, T, C) channels-last, weights
 WIO (K, Cin, Cout). The kernel takes bf16 activations and weights and fp32
@@ -24,7 +32,7 @@ modules. Each wrapper reports its conv's FLOPs where it launches
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +41,11 @@ from drn_tpu_torch.ops.cuda import _build
 from drn_tpu_torch.utils import flops
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
-KERNEL_COUTS = (64, 128, 256, 512)  # instantiated in csrc/conv_gemm.cuh
+KERNEL_COUTS = (64, 128, 256, 512)  # instantiated by every kernel source
+TILE_ROWS = 64  # output rows of a conv_ln_relu block: one wgmma M
+# Blocks that may share a row tile's columns, by Cout (csrc/conv_sm90.cuh
+# builds these and refuses any other).
+CONV_SPLITS = {64: (1,), 128: (1,), 256: (1,), 512: (1,)}
 
 
 def same_padding(t: int, k: int, stride: int) -> Tuple[int, int, int]:
@@ -96,6 +108,21 @@ def check_cout(name: str, cout: int) -> None:
     takes any input width."""
     if cout not in KERNEL_COUTS:
         raise ValueError(f"{name}: Cout={cout} not in {KERNEL_COUTS}")
+
+
+class ConvPlan(NamedTuple):
+    split: int  # blocks (a thread block cluster) sharing a row tile
+    grid: int   # blocks: split * ceil(M / TILE_ROWS)
+
+
+def conv_plan(m: int, cout: int, sms: int) -> ConvPlan:
+    """Launch geometry of the conv_ln_relu kernel for M = B·T_out output
+    rows on a card with `sms` SMs: the largest split of CONV_SPLITS[cout]
+    whose blocks, split per row tile, all fit the SMs at once."""
+    check_cout("conv_ln_relu", cout)
+    tiles = -(-m // TILE_ROWS)
+    split = max(s for s in CONV_SPLITS[cout] if s == 1 or s * tiles <= sms)
+    return ConvPlan(split, split * tiles)
 
 
 def conv_taps(x, w, out_t: int, left: int, stride: int = 1):
@@ -179,12 +206,14 @@ def conv_ln_relu(x, w, b, scale, offset, stride: int = 1,
         offset=(offset, torch.float32, (cout,)),
     )
     out_t, left, _ = same_padding(t, k, stride)
+    plan = conv_plan(bsz * out_t, cout, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     out = torch.empty((bsz, out_t, cout), dtype=torch.bfloat16,
                       device=x.device)
-    fn = _build.entry("conv_block", "drn_conv_ln_relu", 6, 10)
+    fn = _build.entry("conv_block", "drn_conv_ln_relu", 6, 12)
     rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
             offset.data_ptr(), out.data_ptr(), bsz, t, cin, cout, k, stride,
-            out_t, left, int(use_norm), int(use_act), stream_of(x))
+            out_t, left, int(use_norm), int(use_act), *plan, stream_of(x))
     if rc != 0:
         raise RuntimeError(f"conv_ln_relu: CUDA error {rc} at launch")
     conv_ln_relu.launches += 1

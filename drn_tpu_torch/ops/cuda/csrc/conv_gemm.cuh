@@ -1,17 +1,18 @@
 // conv1d-as-GEMM with a fused LayerNorm/ReLU epilogue, for sm_90a.
 //
-// One kernel template serves three TPU kernels of the package and the
-// measurement probe's; they differ only in how a tile of the input is
-// staged (the prologue) and in which parts of the epilogue run:
+// One kernel template serves two TPU kernels of the package and the
+// measurement probe's; they differ only in which parts of the epilogue
+// run and in the bias, eps and padding they are given. The prologue stages
+// a tile of the input:
 //
-//   kPlain     conv_block.cu   x bf16 as it is
 //   kHadamard  fused_fusion.cu x = v * q[b] (bf16 product), never in HBM;
 //                              with the LN+ReLU epilogue (fused_fusion_block)
 //                              or without it (fused_fusion)
 //              block_probe.cu  the same block as the measurement probe's
 //                              kernel: bf16 bias, its own eps, left pad K/2
 //
-// (The stem, stem.cu, has a kernel of its own: stem_sm90.cuh.)
+// (The stem, stem.cu, and conv_ln_relu, conv_block.cu, have kernels of
+// their own: stem_sm90.cuh and conv_sm90.cuh.)
 //
 // Any Cin: a row whose width is not a multiple of 8 is staged channel by
 // channel (fetch_a). The backward passes recompute the pre-LayerNorm conv
@@ -66,7 +67,7 @@ constexpr int kThreads = 256;    // 8 warps: 2 along rows x 4 along columns
 constexpr int kALd = kBK + 8;    // bf16 row pitch of the A tile (padding vs bank conflicts)
 constexpr float kLnEps = 1e-6f;  // flax.linen.LayerNorm default
 
-enum Prologue { kPlain = 0, kHadamard = 1 };
+enum Prologue { kHadamard = 1 };
 
 struct ConvArgs {
   const void* x;                 // (B, T, Cin) bf16
@@ -139,10 +140,7 @@ __device__ __forceinline__ uint4 fetch_a(const ConvArgs& a, int gm, int tap,
     for (int i = 0; i < 4; ++i) rr[i] = pack_bf16x2(f[2 * i], f[2 * i + 1]);
     return r;
   }
-  if (PRO == kPlain) {
-    r = *reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(a.x) + row * a.Cin + c);
-  } else if (PRO == kHadamard) {
+  if (PRO == kHadamard) {
     uint4 v = *reinterpret_cast<const uint4*>(
         static_cast<const __nv_bfloat16*>(a.x) + row * a.Cin + c);
     uint4 q = *reinterpret_cast<const uint4*>(

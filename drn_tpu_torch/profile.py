@@ -37,7 +37,8 @@ from drn_tpu_torch.evaluate import (build_model, make_eval_step,
 from drn_tpu_torch.train import make_optimizer, make_train_step
 from drn_tpu_torch.utils.profiling import host_ms
 
-OWN_KERNELS = ("conv_gemm_kernel", "row_stats_kernel")
+OWN_KERNELS = ("conv_gemm_kernel", "conv_ln_relu_kernel", "stem_kernel",
+               "row_stats_kernel")
 
 
 def _union_us(intervals) -> float:

@@ -29,7 +29,8 @@ from drn_tpu_torch.ops.cuda import (conv_ln_relu, fused_fusion_block,
 from drn_tpu_torch.ops.cuda.autograd import (ConvLnReluFn,
                                              FusedFusionBlockFn,
                                              FusedFusionFn, FusedStemFn)
-from drn_tpu_torch.ops.cuda.conv_block import conv_ln_relu_reference
+from drn_tpu_torch.ops.cuda.conv_block import (conv_ln_relu_reference,
+                                               conv_plan)
 from drn_tpu_torch.ops.cuda.fused_fusion import (fused_fusion,
                                                  fused_fusion_block_reference,
                                                  fused_fusion_reference)
@@ -58,14 +59,31 @@ def _epilogue(dev, cout):
             _randn(dev, cout, scale=0.1, dtype=torch.float32, seed=3))
 
 
-@pytest.mark.parametrize("t,cin,cout,k,stride,use_norm,use_act", [
+# Every width the kernel instantiates x K 1 and 3 at strides 1 and 2 x T
+# 64, 57 (odd: stride 2 pads 1 row on each side), 114 (the towers' gap
+# concat: tiles across video boundaries, a ragged last tile), 16 x Cin 512
+# with LayerNorm and ReLU, 1536 (IoU mix_0) without ReLU (the laterals),
+# 128 without either (the backward's recompute); then the earlier cases,
+# and activitynet_c3d's Cin 500 (rows not 16-byte aligned in bf16, a last
+# channel vector that runs past Cin).
+CONV_CASES = [(t, cin, cout, k, stride, norm, act)
+              for cout in (64, 128, 256, 512)
+              for k, stride in ((1, 1), (3, 1), (3, 2), (1, 2))
+              for t in (64, 57, 114, 16)
+              for cin, norm, act in ((512, True, True), (1536, True, False),
+                                     (128, False, False))] + [
     (64, 512, 512, 3, 1, True, True),
     (64, 512, 512, 3, 2, True, True),
     (57, 128, 128, 3, 2, False, True),   # ragged T, odd length
     (114, 256, 512, 3, 1, True, True),   # the heads' gap concat
     (112, 1536, 512, 1, 1, True, True),  # IoU mix_0
     (33, 64, 64, 1, 1, True, False),
-])
+    (37, 500, 512, 3, 1, True, True),
+    (37, 500, 512, 3, 2, True, True),
+]
+
+
+@pytest.mark.parametrize("t,cin,cout,k,stride,use_norm,use_act", CONV_CASES)
 def test_conv_ln_relu_kernel(dev, t, cin, cout, k, stride, use_norm,
                              use_act):
     x = _randn(dev, 6, t, cin)
@@ -180,20 +198,6 @@ def test_fused_fusion_kernel(dev, t):
     torch.testing.assert_close(got.float(),
                                fused_fusion_reference(v, q, w, b).float(),
                                **TOL)
-
-
-def test_conv_ln_relu_at_cin_500(dev):
-    """activitynet_c3d's 500 features: rows not 16-byte aligned in bf16,
-    and a last channel vector that runs past Cin. (The stem at Cin 500 is
-    a case of test_fused_stem_kernel.)"""
-    cin, d = 500, 512
-    xb = _randn(dev, 4, 37, cin, seed=10)
-    for stride in (1, 2):
-        cargs = (xb, _randn(dev, 3, cin, d, scale=(3 * cin) ** -0.5, seed=11),
-                 *_epilogue(dev, d), stride)
-        torch.testing.assert_close(
-            conv_ln_relu(*cargs).float(),
-            conv_ln_relu_reference(*cargs).float(), **TOL)
 
 
 def _grads_vs_plain(fn, plain, args, shape_out, dev):

@@ -16,7 +16,12 @@ import pytest
 from drn_tpu_torch.config import get_config, list_configs
 from drn_tpu_torch.ops.cuda import stem
 
-HEADER = (Path(stem.__file__).parent / "csrc" / "stem_sm90.cuh").read_text()
+CSRC = Path(stem.__file__).parent / "csrc"
+# The Hopper building blocks shared with the conv kernel (the wgmma
+# products, the k-tile depth, the block's shared-memory limit), then the
+# stem's own header, which includes them.
+SHARED = (CSRC / "sm90.cuh").read_text()
+HEADER = SHARED + (CSRC / "stem_sm90.cuh").read_text()
 CASES = [(name, which) for name in list_configs() for which in ("eval", "train")]
 
 
@@ -61,10 +66,11 @@ C = _c_constants(HEADER, r"^constexpr int (\w+) = ([^;]+);", {})
 
 
 def test_plan_mirrors_the_cuda_source():
-    """stem_plan's constants and sizes are the ones stem_sm90.cuh is
-    compiled with: its tile, ring cap, limits, the shared memory a block
-    keeps beside the ring, and each width's stage bytes, stages and
-    total (struct Geometry), which the entry point checks at launch."""
+    """stem_plan's constants and sizes are the ones stem_sm90.cuh (with
+    sm90.cuh) is compiled with: its tile, ring cap, limits, the shared
+    memory a block keeps beside the ring, each width's wgmma product (in
+    sm90.cuh), and each width's stage bytes, stages and total (struct
+    Geometry), which the entry point checks at launch."""
     assert C["kBM"] == stem.TILE_ROWS
     assert C["kBK"] == stem.TILE_DEPTH
     assert C["kMaxStages"] == stem.MAX_STAGES
@@ -74,7 +80,7 @@ def test_plan_mirrors_the_cuda_source():
     geometry = HEADER[HEADER.index("struct Geometry {"):]
     geometry = geometry[:geometry.index("};")]
     for cout in stem.STEM_COUTS:
-        assert f"wgmma<{cout // 2}>(float (&d)[{cout // 4}]" in HEADER
+        assert f"wgmma<{cout // 2}>(float (&d)[{cout // 4}]" in SHARED
         for split in (1, 2) if cout == 512 else (1,):
             g = _c_constants(geometry, r"static constexpr int (kCout|kStageBytes"
                              r"|kFit) = ([^;]+);", {**C, "NW": cout // split // 64})
