@@ -45,7 +45,7 @@ KERNEL_COUTS = (64, 128, 256, 512)  # instantiated by every kernel source
 TILE_ROWS = 64  # output rows of a conv_ln_relu block: one wgmma M
 # Blocks that may share a row tile's columns, by Cout (csrc/conv_sm90.cuh
 # builds these and refuses any other).
-CONV_SPLITS = {64: (1,), 128: (1,), 256: (1,), 512: (1,)}
+CONV_SPLITS = {64: (1,), 128: (1,), 256: (1,), 512: (1, 2, 4)}
 
 
 def same_padding(t: int, k: int, stride: int) -> Tuple[int, int, int]:

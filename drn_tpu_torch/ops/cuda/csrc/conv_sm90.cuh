@@ -403,6 +403,10 @@ cudaError_t launch_conv(const ConvArgs& a, int cout, int split, int grid,
                         cudaStream_t stream) {
   if (grid != split * ((a.M + kBM - 1) / kBM) || grid <= 0)
     return cudaErrorInvalidValue;
+  if (split == 2)
+    return cout == 512 ? launch_nw<4, 2>(a, grid, stream) : cudaErrorInvalidValue;
+  if (split == 4)
+    return cout == 512 ? launch_nw<2, 4>(a, grid, stream) : cudaErrorInvalidValue;
   if (split != 1) return cudaErrorInvalidValue;
   switch (cout) {
     case 64: return launch_nw<1, 1>(a, grid, stream);

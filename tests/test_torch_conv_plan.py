@@ -143,3 +143,13 @@ def test_conv_block_sites_are_the_forwards_launches(name):
         model(batch["features"], batch["word_ids"], batch["query_mask"])
     assert seen == [s[1:] for s in conv_block_sites(cfg.model,
                                                     cfg.data.num_clips)]
+
+
+def test_conv_sites_probe_times_the_flagship_launches():
+    """probes/conv_sites.py times the flagship's 15 launches at B=48 and
+    B=384; the script it runs in each tree compiles."""
+    from drn_tpu_torch.probes import conv_sites
+
+    rows = conv_sites.sites()
+    assert len(rows) == 30 and {r[1] for r in rows} == {48, 384}
+    compile(conv_sites.TIMER % (conv_sites.sites((48,)),), "timer", "exec")

@@ -200,6 +200,26 @@ def test_fused_fusion_kernel(dev, t):
                                **TOL)
 
 
+@pytest.mark.parametrize("split,part,more", [(4, 4, 0), (2, 4, 1), (2, 2, 0),
+                                             (1, 2, 1)])
+def test_conv_ln_relu_kernel_at_the_split_boundaries(dev, split, part, more):
+    """Cout 512 at the most row tiles that are still split over a 4-block
+    cluster (a quarter of the card's SMs), over a 2-block one (half), and
+    one tile more than each; against the plain version, with LayerNorm
+    (whose row sums cross the cluster) and without."""
+    cin, cout = 128, 512
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b = sms // part + more  # one 64-row tile a video
+    assert conv_plan(b * 64, cout, sms).split == split
+    x = _randn(dev, b, 64, cin)
+    w = _randn(dev, 3, cin, cout, scale=(3 * cin) ** -0.5, seed=4)
+    for use_norm in (True, False):
+        args = (x, w, *_epilogue(dev, cout), 1, use_norm, use_norm)
+        torch.testing.assert_close(conv_ln_relu(*args).float(),
+                                   conv_ln_relu_reference(*args).float(),
+                                   **TOL)
+
+
 def _grads_vs_plain(fn, plain, args, shape_out, dev):
     """fn.apply(*args) backward vs autograd of plain(*args), same g."""
     g = _randn(dev, *shape_out, seed=20)
