@@ -20,7 +20,9 @@
 // mbarriers, the LayerNorm epilogue in registers; (2) the Cout split over
 // a cluster of 2 or 4 blocks where the row tiles leave SMs idle (the
 // split is chosen by ops/cuda/conv_block.py::conv_plan from the card's
-// SM count).
+// SM count); (3) A by TMA where K = 1 and stride 1 (a 64-row box of x),
+// and the output tile staged in shared memory and stored 16 bytes a
+// thread. Not built: a persistent schedule.
 #include "conv_sm90.cuh"
 
 // split, grid: ops/cuda/conv_block.py::conv_plan; the launch is refused

@@ -34,24 +34,29 @@
 // Pipeline: warp-specialised. A producer warpgroup (setmaxnreg down to
 // kProducerRegs) fills the ring. One thread announces the weight tile's
 // bytes on the slot's "full" mbarrier and copies it with TMA (3-D tensor
-// map over (K, Cin, Cout), 128-byte swizzle, zeros past Cin). All 128
-// copy A: four 16-byte units each, with cp.async straight into the
-// swizzled slot (zero-filled where the row is padding), or, where rows
-// are not 16-byte aligned (Cin % 8 != 0), channel by channel through
-// registers. A producer thread keeps kLag k-tiles of copies in flight;
-// when the oldest has landed (cp.async.wait_group), it fences the slot to
-// the async proxy, which wgmma reads through, and arrives on its "full"
-// mbarrier. The two consumer warpgroups (setmaxnreg up to kConsumerRegs)
-// wait on "full", issue the tile's four k16 wgmma, keep one group in
-// flight, and release the previous slot on its "empty" mbarrier.
+// map over (K, Cin, Cout), 128-byte swizzle, zeros past Cin). Where K = 1,
+// stride 1 and rows are 16-byte aligned (TMA_A: the FPN laterals, the IoU
+// mixes), output row gm reads input row gm, so the same thread copies A
+// by TMA too, a box of 64 rows of x seen as (B*T, Cin), and the slot's
+// barrier waits for that thread alone. Otherwise all 128 copy A: four
+// 16-byte units each, with cp.async straight into the swizzled slot
+// (zero-filled where the row is padding), or, where rows are not 16-byte
+// aligned (Cin % 8 != 0), channel by channel through registers; a thread
+// keeps kLag k-tiles of copies in flight, and when the oldest has landed
+// (cp.async.wait_group) it fences the slot to the async proxy, which wgmma
+// reads through, and arrives on its "full" mbarrier. The two consumer
+// warpgroups (setmaxnreg up to kConsumerRegs) wait on "full", issue the
+// tile's four k16 wgmma, keep one group in flight, and release the
+// previous slot on its "empty" mbarrier.
 //
 // Epilogue from the accumulator registers: + bias, row sums and sums of
 // squares reduced across the 4 lanes that share a row, exchanged between
 // the warpgroups through shared memory (and every block of the cluster
 // over distributed shared memory when SPLIT > 1), flax LayerNorm (fast
-// variance clamped at 0, eps 1e-6), * scale + offset, ReLU, bf16 store.
-// Each of use_norm / use_act can be off (the backward's recompute, the
-// fusion backward's dx conv, the FPN laterals).
+// variance clamped at 0, eps 1e-6), * scale + offset, ReLU; the bf16 tile
+// is staged in the (by then idle) ring and stored 16 bytes a thread, each
+// warp writing whole rows. Each of use_norm / use_act can be off (the
+// backward's recompute, the fusion backward's dx conv, the FPN laterals).
 #pragma once
 
 #include "sm90.cuh"
@@ -71,7 +76,7 @@ constexpr int kConsumerRegs = 224;
 constexpr int kUnits = kBM * kBK * 2 / 16 / kProducers;
 constexpr int kMaxSplit = 4;
 constexpr int kMaxStages = 8;
-constexpr int kMaxLag = 3;
+constexpr int kMaxLag = 3;  // a deeper lag was no faster on an H100
 constexpr int kATileBytes = kBM * kBK * 2;
 // LayerNorm (sum, sum of squares) per row from each consumer warpgroup of
 // the (up to four) blocks that share a row tile.
@@ -141,10 +146,12 @@ __device__ __forceinline__ uint4 load_unaligned(const __nv_bfloat16* row,
 // rank r computes columns r * 64 * NW .. of Cout = 64 * NW * SPLIT (each
 // stages the same A; only the LayerNorm row sums cross, through
 // distributed shared memory): SPLIT times the blocks where the row tiles
-// alone leave SMs idle.
-template <int NW, int SPLIT>
+// alone leave SMs idle. TMA_A: A comes by TMA through `xmap` (K = 1,
+// stride 1, Cin % 8 == 0); otherwise `xmap` is not read.
+template <int NW, int SPLIT, bool TMA_A>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_ln_relu_kernel(const __grid_constant__ CUtensorMap wmap,
+                        const __grid_constant__ CUtensorMap xmap,
                         const ConvArgs a) {
   using G = Geometry<NW>;
   constexpr int kS = G::kStages;
@@ -153,6 +160,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kN = G::kCout / 2;  // columns of each consumer warpgroup
   constexpr int kAcc = kN / 2;      // fp32 accumulators a consumer thread
   constexpr uint32_t kBBytes = kBK * G::kCout * 2;
+  constexpr uint32_t kTileBytes = kBBytes + (TMA_A ? kATileBytes : 0);
   static_assert(kS >= 3 && kLag >= 1, "the pipeline needs three stages");
   static_assert(kN >= 32 && SPLIT <= kMaxSplit, "no such wgmma");
 
@@ -170,7 +178,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < kS; ++s) {
-      mbar_init(full(s), kProducers + 1);  // + the weight copies' arrival
+      // The copying thread's arrival, + every producer's with cp.async.
+      mbar_init(full(s), TMA_A ? 1 : kProducers + 1);
       mbar_init(empty(s), 2);              // one per consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -184,12 +193,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_k = a.K * a.nkc;
 
   if (tid < kProducers) {
-    // Producer warpgroup. Thread 0 copies each weight tile with TMA. All
-    // 128 copy A: 16-byte unit aj (channels 8 aj .. 8 aj + 7 of the chunk)
-    // of tile rows ar + 16 i. vrow[i] is that row's video's first input
-    // row, t0[i] its input time at tap 0 (T for a row past M: never in
-    // [0, T)).
+    // Producer warpgroup.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (TMA_A) {
+      // Thread 0 copies both tiles of every k-tile (K = 1: k-tile kt is
+      // channels kt * kBK ..); the rest only join the cluster's barrier.
+      for (int kt = 0; kt < n_k && tid == 0; ++kt) {
+        const int s = kt % kS;
+        if (kt >= kS) mbar_wait(empty(s), (kt / kS - 1) & 1);
+        mbar_arrive_expect_tx(full(s), kTileBytes);
+#pragma unroll
+        for (int nb = 0; nb < NW; ++nb)
+          tma_load_3d(b_tile(s) + nb * (kBK * 128), &wmap, full(s),
+                      col_base + 64 * nb, kt * kBK, 0);
+        tma_load_3d(a_tile(s), &xmap, full(s), kt * kBK, m0, 0);
+      }
+      __syncwarp();  // warp 0 meets again before the aligned barrier
+      if (SPLIT > 1) cluster_sync();  // the consumers' LayerNorm exchange
+      return;
+    }
+    // Thread 0 copies each weight tile with TMA. All 128 copy A: 16-byte
+    // unit aj (channels 8 aj .. 8 aj + 7 of the chunk) of tile rows ar +
+    // 16 i. vrow[i] is that row's video's first input row, t0[i] its input
+    // time at tap 0 (T for a row past M: never in [0, T)).
     const int aj = tid & 7, ar = tid >> 3;
     int vrow[kUnits], t0[kUnits];
 #pragma unroll
@@ -209,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = kt % kS;
         if (kt >= kS) mbar_wait(empty(s), (kt / kS - 1) & 1);
         if (tid == 0) {
-          mbar_arrive_expect_tx(full(s), kBBytes);
+          mbar_arrive_expect_tx(full(s), kTileBytes);
 #pragma unroll
           for (int nb = 0; nb < NW; ++nb)
             tma_load_3d(b_tile(s) + nb * (kBK * 128), &wmap, full(s),
@@ -348,11 +374,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         acc[4 * n8 + 3] = (acc[4 * n8 + 3] - mean1) * (rstd1 * sc.y) + of.y;
       }
     }
+    // The bf16 tile goes through the ring, rows of kPitch bytes, 16-byte
+    // chunk j of row r at chunk j ^ (r % 8) (no bank conflicts either
+    // way): every wgmma of both warpgroups has completed by the barrier
+    // before (the LayerNorm exchange's, or this one), and every copy into
+    // the ring has landed.
+    if (SPLIT == 1 && !a.use_norm)
+      asm volatile("bar.sync 1, %0;\n" ::"n"(2 * 128) : "memory");
+    constexpr int kPitch = G::kCout * 2;
+    constexpr int kChunks = G::kCout / 8;  // 16-byte chunks of a row
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gm = m0 + r0 + 8 * h;
-      if (gm >= a.M) continue;
-      __nv_bfloat16* orow = a.out + static_cast<size_t>(gm) * kCout + col0;
+      const int r = r0 + 8 * h;
 #pragma unroll
       for (int n8 = 0; n8 < kN / 8; ++n8) {
         float y0 = acc[4 * n8 + 2 * h], y1 = acc[4 * n8 + 2 * h + 1];
@@ -360,26 +393,45 @@ __global__ void __launch_bounds__(kThreads, 1)
           y0 = fmaxf(y0, 0.f);
           y1 = fmaxf(y1, 0.f);
         }
-        *reinterpret_cast<uint32_t*>(orow + 8 * n8) = pack_bf16x2(y0, y1);
+        const int j = wg * kN / 8 + n8;
+        *reinterpret_cast<uint32_t*>(ring_ptr + r * kPitch +
+                                     ((j ^ (r & 7)) << 4) + (lane & 3) * 4) =
+            pack_bf16x2(y0, y1);
       }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(2 * 128) : "memory");
+#pragma unroll 4
+    for (int i = ct; i < kBM * kChunks; i += 256) {
+      const int r = i / kChunks, j = i % kChunks, gm = m0 + r;
+      if (gm >= a.M) continue;
+      *reinterpret_cast<uint4*>(a.out + static_cast<size_t>(gm) * kCout +
+                                col_base + 8 * j) =
+          *reinterpret_cast<const uint4*>(ring_ptr + r * kPitch +
+                                          ((j ^ (r & 7)) << 4));
     }
   }
 }
 
-template <int NW, int SPLIT>
-cudaError_t launch_nw(const ConvArgs& a, int grid, cudaStream_t stream) {
+template <int NW, int SPLIT, bool TMA_A>
+cudaError_t launch_kernel(const ConvArgs& a, int grid, cudaStream_t stream) {
   using G = Geometry<NW>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv_ln_relu_kernel<NW, SPLIT>,
+        conv_ln_relu_kernel<NW, SPLIT, TMA_A>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  CUtensorMap wmap;
+  CUtensorMap wmap, xmap;
   cudaError_t e = weight_map(&wmap, a.w, a.K, a.Cin, G::kCout * SPLIT);
   if (e != cudaSuccess) return e;
+  // x as (B*T, Cin) in the weight map's layout with one tap: boxes of kBK
+  // channels x 64 rows, zeros past Cin and past the last row.
+  static_assert(kBK == kBM, "a box of the weight's map is kBK rows");
+  xmap = wmap;
+  if (TMA_A && (e = weight_map(&xmap, a.x, 1, a.M, a.Cin)) != cudaSuccess)
+    return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
@@ -392,8 +444,18 @@ cudaError_t launch_nw(const ConvArgs& a, int grid, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = SPLIT > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, conv_ln_relu_kernel<NW, SPLIT>, wmap, a);
+  e = cudaLaunchKernelEx(&cfg, conv_ln_relu_kernel<NW, SPLIT, TMA_A>, wmap,
+                         xmap, a);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// A by TMA where output row gm reads input row gm and rows are 16-byte
+// aligned; by cp.async otherwise.
+template <int NW, int SPLIT>
+cudaError_t launch_nw(const ConvArgs& a, int grid, cudaStream_t stream) {
+  return a.K == 1 && a.stride == 1 && (a.Cin & 7) == 0
+             ? launch_kernel<NW, SPLIT, true>(a, grid, stream)
+             : launch_kernel<NW, SPLIT, false>(a, grid, stream);
 }
 
 // The caller's split and grid must be ones this source builds: a split of

@@ -65,7 +65,8 @@ def _epilogue(dev, cout):
 # with LayerNorm and ReLU, 1536 (IoU mix_0) without ReLU (the laterals),
 # 128 without either (the backward's recompute); then the earlier cases,
 # and activitynet_c3d's Cin 500 (rows not 16-byte aligned in bf16, a last
-# channel vector that runs past Cin).
+# channel vector that runs past Cin). K 1 at stride 1 with aligned rows
+# takes A by TMA, every other case A by cp.async.
 CONV_CASES = [(t, cin, cout, k, stride, norm, act)
               for cout in (64, 128, 256, 512)
               for k, stride in ((1, 1), (3, 1), (3, 2), (1, 2))
@@ -80,6 +81,7 @@ CONV_CASES = [(t, cin, cout, k, stride, norm, act)
     (33, 64, 64, 1, 1, True, False),
     (37, 500, 512, 3, 1, True, True),
     (37, 500, 512, 3, 2, True, True),
+    (37, 500, 512, 1, 1, True, True),    # k=1 without A by TMA
 ]
 
 
