@@ -11,15 +11,16 @@ non-zero exit code:
   2. kernels  each kernel at every distinct shape the flagship eval step
               (charades_c3d_batched_eval, B=48) and train step (B=384:
               forward, the backward's recomputes, the fusion dx convs)
-              give it, and the stem at activitynet_c3d's Cin=500 (B=16,
-              T=256) and at synthetic_recipe's Cin=256 -> Cout=128 (B=64,
-              T=64), held against its plain PyTorch version on the card
-              (bf16 tolerance below), and timed with CUDA events over a
-              CUDA graph of back-to-back launches: the kernel, its plain
+              give it, `fused_fusion` also at B=48 (its splits), and the
+              stem at activitynet_c3d's Cin=500 (B=16, T=256) and at
+              synthetic_recipe's Cin=256 -> Cout=128 (B=64, T=64), held
+              against its plain PyTorch version on the card (bf16
+              tolerance below), and timed with CUDA events over a CUDA
+              graph of back-to-back launches: the kernel, its plain
               version, and `F.conv1d` of the same conv as a yardstick (the
-              port never calls it). The stem's and conv_ln_relu's rows also
-              carry their grid (`blocks`) and achieved `tflops`,
-              conv_ln_relu's also the cluster `split` of its columns.
+              port never calls it). Every row also carries its grid
+              (`blocks`) and achieved `tflops`; conv_ln_relu's and the
+              fusion kernels' also the cluster `split` of its columns.
   3. main     `build_model` + `evaluate()` at the flagship width (D=512,
               F=4096, T=64, 3 levels) on the synthetic fixture, 3 batches of
               48 (the last one ragged); the launch counts of that run; the
@@ -45,9 +46,10 @@ non-zero exit code:
               kernel against its plain version at K=3 and at K=4 (B=32).
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
-kernel (its launches from the `main` run, `fused_fusion`'s from the
-`train` run, `pallas_block`'s from the `probe` run), and last {"ok": true,
-"device": {...}}.
+kernel (its entry source and the header its kernel is built on; its
+launches from the `main` run, `fused_fusion`'s from the `train` run,
+`pallas_block`'s from the `probe` run), and last {"ok": true, "device":
+{...}}.
 
 Without a CUDA device, or run in a directory without the package, it exits
 non-zero and prints no result. It imports nothing of JAX nor of `drn_tpu`.
@@ -191,22 +193,27 @@ def kernel_phase(cfg, dev):
             rows[-1].update(blocks=plan.grid, split=plan.split,
                             tflops=flops / rows[-1]["ms"] / 1e9)
 
-    def fusion_rows(path, b, epilogue):
+    def fusion_rows(path, b, epilogue, count=1):
         """fused_fusion_block (epilogue) or fused_fusion: one launch per
-        pyramid level."""
+        pyramid level (`count` a step), with the grid (`blocks`), the
+        cluster split of its columns and the achieved TFLOP/s (conv_plan,
+        as conv_ln_relu)."""
         for t in level_ts:
             v, q = randn(b, t, d), randn(b, d, scale=0.5)
             w = randn(kf, d, d, scale=1 / math.sqrt(kf * d))
             args = (v, q, w, *epilogue_params(d)[:3 if epilogue else 1])
             name = "fused_fusion_block" if epilogue else "fused_fusion"
             vq = (v * q[:, None, :]).contiguous()
-            measure(path, name, dict(B=b, T=t, D=d, K=kf), 1,
+            flops = 2 * b * t * kf * d * d
+            measure(path, name, dict(B=b, T=t, D=d, K=kf), count,
                     lambda: getattr(fused_fusion, name)(*args),
                     lambda: getattr(fused_fusion, name + "_reference")(*args),
-                    library_conv(vq, w, kf, 1),
-                    2 * b * t * kf * d * d,
+                    library_conv(vq, w, kf, 1), flops,
                     2 * (2 * v.numel() + q.numel() + w.numel())
                     + (12 if epilogue else 4) * d)
+            plan = conv_block.conv_plan(b * t, d, sms)
+            rows[-1].update(blocks=plan.grid, split=plan.split,
+                            tflops=flops / rows[-1]["ms"] / 1e9)
 
     def stem_row(path, b, t, cin, count, use_norm=True, cout=d, **note):
         """fused_stem on fp32 features; without its output LayerNorm and
@@ -248,8 +255,11 @@ def kernel_phase(cfg, dev):
     stem_row("train", TRAIN_BATCH, t0, fdim, 1)
     stem_row("train", TRAIN_BATCH, t0, fdim, 1, use_norm=False)
 
-    # activitynet_c3d's 500 features: a ragged last k-tile of channels;
-    # synthetic_recipe's stem, Cin=256 -> Cout=128, at its eval batch.
+    # fused_fusion at the eval batch's splits (it runs in the train step
+    # alone); activitynet_c3d's 500 features: a ragged last k-tile of
+    # channels; synthetic_recipe's stem, Cin=256 -> Cout=128, at its eval
+    # batch.
+    fusion_rows("coverage", b, False, 0)
     stem_row("coverage", 16, 256, 500, 0, config="activitynet_c3d")
     stem_row("coverage", 64, 64, 256, 0, cout=128, config="synthetic_recipe")
 
@@ -535,17 +545,23 @@ def main() -> int:
         timeout=60).stdout.strip()
     print(smi, flush=True)
 
+    # Each kernel's entry source, the header its kernel is built on, and
+    # the TPU kernel it replaces. The fusion kernels are conv_sm90.cuh's
+    # Hadamard variant; only the probe's block is on the first template.
     where = {
-        "fused_stem": ("drn_tpu_torch/ops/cuda/csrc/stem.cu",
+        "fused_stem": ("drn_tpu_torch/ops/cuda/csrc/stem.cu", "stem_sm90.cuh",
                        "drn_tpu/ops/pallas/stem.py:111"),
         "fused_fusion_block": ("drn_tpu_torch/ops/cuda/csrc/fused_fusion.cu",
+                               "conv_sm90.cuh",
                                "drn_tpu/ops/pallas/fused_fusion.py:146"),
         "conv_ln_relu": ("drn_tpu_torch/ops/cuda/csrc/conv_block.cu",
+                         "conv_sm90.cuh",
                          "drn_tpu/ops/pallas/conv_block.py:100"),
         "fused_fusion": ("drn_tpu_torch/ops/cuda/csrc/fused_fusion.cu",
+                         "conv_sm90.cuh",
                          "drn_tpu/ops/pallas/fused_fusion.py:61"),
         "pallas_block": ("drn_tpu_torch/ops/cuda/csrc/block_probe.cu",
-                         "scripts/pallas_block_probe.py:52"),
+                         "conv_gemm.cuh", "scripts/pallas_block_probe.py:52"),
     }
     # `pallas_block` at the probe's one shape, its own path.
     totals["probe", "pallas_block"] = Counter(
@@ -558,10 +574,10 @@ def main() -> int:
     # probe's shape for `pallas_block`.
     path = {"fused_fusion": "train", "pallas_block": "probe"}
     kernels = []
-    for name, (source, replaces) in where.items():
+    for name, (source, header, replaces) in where.items():
         tot = totals[path.get(name, "eval"), name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda", "source": source, "header": header,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],

@@ -10,8 +10,8 @@
 // row is computed, B a multiple of bb or not.
 //
 // The Hadamard product is formed while a tile of v is staged (prologue
-// kHadamard), as in fused_fusion.cu. Bound on an H100 and what the design
-// does about it: conv_gemm.cuh.
+// kHadamard). Bound on an H100 and what the design does about it:
+// conv_gemm.cuh.
 #include "conv_gemm.cuh"
 
 extern "C" int drn_pallas_block(const void* v, const void* q, const void* w,

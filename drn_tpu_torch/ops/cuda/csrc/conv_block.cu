@@ -44,6 +44,6 @@ extern "C" int drn_conv_ln_relu(const void* x, const void* w, const void* bias,
   a.M = B * T_out; a.T = T; a.T_out = T_out; a.Cin = Cin; a.K = K;
   a.stride = stride; a.left = left; a.use_norm = use_norm; a.use_act = use_act;
   a.nkc = (Cin + drn::kBK - 1) / drn::kBK;
-  return static_cast<int>(drn::launch_conv(
+  return static_cast<int>(drn::launch_conv<false>(
       a, Cout, split, grid, static_cast<cudaStream_t>(stream)));
 }

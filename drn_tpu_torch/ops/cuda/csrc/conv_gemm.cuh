@@ -1,22 +1,18 @@
 // conv1d-as-GEMM with a fused LayerNorm/ReLU epilogue, for sm_90a.
 //
-// One kernel template serves two TPU kernels of the package and the
-// measurement probe's; they differ only in which parts of the epilogue
-// run and in the bias, eps and padding they are given. The prologue stages
-// a tile of the input:
+// The template serves the measurement probe's kernel alone
+// (block_probe.cu): the fused fusion block with a bf16 bias, its own eps
+// and K/2 rows of left padding for any K. The prologue stages a tile of
+// the input:
 //
-//   kHadamard  fused_fusion.cu x = v * q[b] (bf16 product), never in HBM;
-//                              with the LN+ReLU epilogue (fused_fusion_block)
-//                              or without it (fused_fusion)
-//              block_probe.cu  the same block as the measurement probe's
-//                              kernel: bf16 bias, its own eps, left pad K/2
+//   kHadamard  x = v * q[b] (bf16 product), never in HBM
 //
-// (The stem, stem.cu, and conv_ln_relu, conv_block.cu, have kernels of
-// their own: stem_sm90.cuh and conv_sm90.cuh.)
+// (The stem, stem.cu, conv_ln_relu, conv_block.cu, and the package's
+// fusion kernels, fused_fusion.cu, have Hopper kernels of their own:
+// stem_sm90.cuh and conv_sm90.cuh.)
 //
 // Any Cin: a row whose width is not a multiple of 8 is staged channel by
-// channel (fetch_a). The backward passes recompute the pre-LayerNorm conv
-// through the same kernels with the epilogue off (use_norm = use_act = 0).
+// channel (fetch_a).
 //
 // Output rows are the flattened (b, t_out) pairs, M = B * T_out; a block
 // owns BM = 32 of them and ALL Cout columns, because the LayerNorm of the
@@ -32,8 +28,8 @@
 //
 // Epilogue: accumulator -> shared memory (fp32), then one warp per row:
 // + bias (fp32, or bf16 widened to fp32 when bias_bf16 is set), LayerNorm
-// in fp32 (eps from the arguments: kLnEps for the package's kernels;
-// var = E[x^2] - E[x]^2 clamped at 0, flax's fast variance), * scale +
+// in fp32 (eps from the arguments; var = E[x^2] - E[x]^2 clamped at 0,
+// flax's fast variance), * scale +
 // offset, ReLU, bf16 store. Each of use_norm / use_act can be off.
 //
 // What bounds it on an H100: at the eval step's shapes the blocks are
@@ -51,12 +47,11 @@
 #include <stdint.h>
 
 namespace drn {
-// Internal linkage: each source is its own library, loaded with ctypes, and
-// several instantiate the same template (fused_fusion.cu and block_probe.cu
-// both launch conv_gemm_kernel<kHadamard, 8>). With external linkage the
-// function-local `configured` flag of launch_nf is one object across all
-// loaded libraries, so the second library would skip setting its own
-// kernel's shared-memory limit and its launch would be refused.
+// Internal linkage: each source is its own library, loaded with ctypes.
+// With external linkage a function-local `configured` flag of a template
+// instantiated by two libraries is one object across both, so the second
+// library would skip setting its own kernel's shared-memory limit and its
+// launch would be refused.
 namespace {
 
 using namespace nvcuda;
@@ -65,7 +60,6 @@ constexpr int kBM = 32;          // output rows per block
 constexpr int kBK = 32;          // reduction depth per k-tile
 constexpr int kThreads = 256;    // 8 warps: 2 along rows x 4 along columns
 constexpr int kALd = kBK + 8;    // bf16 row pitch of the A tile (padding vs bank conflicts)
-constexpr float kLnEps = 1e-6f;  // flax.linen.LayerNorm default
 
 enum Prologue { kHadamard = 1 };
 

@@ -5,7 +5,10 @@
 //
 // x (B, T, Cin) bf16; w (K, Cin, Cout) bf16 WIO; y (M = B*T_out, Cout)
 // bf16. Output rows are the flattened (b, t_out) pairs. Any Cin, K >= 1,
-// stride >= 1, T; Cout in {64, 128, 256, 512}.
+// stride >= 1, T; Cout in {64, 128, 256, 512}. The Hadamard variant
+// (fused_fusion.cu) convolves x = v * q[b] instead, the product of each
+// row of v (B, T, Cin) with its own video's query q (B, Cin), rounded to
+// bf16 once and formed while A is staged, so it never reaches HBM.
 //
 // Tiling. A block owns kBM = 64 output rows (one wgmma M) and every Cout
 // column of its share, because the output LayerNorm needs whole rows. Two
@@ -32,10 +35,10 @@
 // kMaxStages (3 for a block of 512 columns, 5 for 256, 8 for 128).
 //
 // Pipeline: warp-specialised. A producer warpgroup (setmaxnreg down to
-// kProducerRegs) fills the ring. One thread announces the weight tile's
+// Regs::kProducer) fills the ring. One thread announces the weight tile's
 // bytes on the slot's "full" mbarrier and copies it with TMA (3-D tensor
 // map over (K, Cin, Cout), 128-byte swizzle, zeros past Cin). Where K = 1,
-// stride 1 and rows are 16-byte aligned (TMA_A: the FPN laterals, the IoU
+// stride 1 and rows are 16-byte aligned (kTmaA: the FPN laterals, the IoU
 // mixes), output row gm reads input row gm, so the same thread copies A
 // by TMA too, a box of 64 rows of x seen as (B*T, Cin), and the slot's
 // barrier waits for that thread alone. Otherwise all 128 copy A: four
@@ -44,8 +47,14 @@
 // aligned (Cin % 8 != 0), channel by channel through registers; a thread
 // keeps kLag k-tiles of copies in flight, and when the oldest has landed
 // (cp.async.wait_group) it fences the slot to the async proxy, which wgmma
-// reads through, and arrives on its "full" mbarrier. The two consumer
-// warpgroups (setmaxnreg up to kConsumerRegs) wait on "full", issue the
+// reads through, and arrives on its "full" mbarrier. The Hadamard
+// variant (stride 1, odd K <= kMaxK) loads a chunk's window of 64 + K - 1
+// rows of v once into registers (ld.global.nc, the next chunk's while
+// this one's tiles are stored), each row with its own video's 8 channels
+// of q, multiplies in fp32, packs to bf16 and stores the K tap-shifted A
+// tiles 16 bytes at a time, then fences and arrives; it never takes TMA
+// for A, which would copy v without q. The two consumer
+// warpgroups (setmaxnreg up to Regs::kConsumer) wait on "full", issue the
 // tile's four k16 wgmma, keep one group in flight, and release the
 // previous slot on its "empty" mbarrier.
 //
@@ -67,13 +76,28 @@ namespace {
 constexpr int kBM = 64;                  // output rows per block
 constexpr int kProducers = 128;          // one producer warpgroup
 constexpr int kThreads = kProducers + 256;  // and two consumer warpgroups
+// Where a k-tile's A comes from; each is a kernel of its own.
+enum ASource {
+  kGatherA,    // x row by row, cp.async
+  kTmaA,       // x by TMA: K = 1, stride 1, 16-byte aligned rows
+  kHadamardA,  // v * q[b] row by row, through registers
+};
 // Registers a thread after setmaxnreg, within the launch's allocation of
-// 384 x 168: the producer holds addresses only, a consumer up to 128 fp32
-// accumulators.
-constexpr int kProducerRegs = 56;
-constexpr int kConsumerRegs = 224;
+// 384 x 168 (128 x P + 256 x C <= 384 x 168): a gathering producer holds
+// addresses only, a consumer up to ACC = 128 fp32 accumulators; the
+// Hadamard producer holds a chunk's product and the next chunk's window of
+// v and q besides (60 registers), so it takes the stem's split.
+template <int A, int ACC>
+struct Regs {
+  static constexpr int kProducer = A != kHadamardA ? 56 : ACC > 64 ? 136 : 152;
+  static constexpr int kConsumer = A != kHadamardA ? 224 : ACC > 64 ? 184 : 176;
+};
 // 16-byte A units a producer thread copies per k-tile: 64 rows x 8.
 constexpr int kUnits = kBM * kBK * 2 / 16 / kProducers;
+// The Hadamard producer's window: 16-byte units a thread holds, 80 rows,
+// so kBM + K - 1 rows for K up to kMaxK.
+constexpr int kWinUnits = 5;
+constexpr int kMaxK = 16 * kWinUnits - kBM + 1;
 constexpr int kMaxSplit = 4;
 constexpr int kMaxStages = 8;
 constexpr int kMaxLag = 3;  // a deeper lag was no faster on an H100
@@ -102,7 +126,8 @@ struct Geometry {
 };
 
 struct ConvArgs {
-  const __nv_bfloat16* x;        // (B, T, Cin)
+  const __nv_bfloat16* x;        // (B, T, Cin): v for kHadamardA
+  const __nv_bfloat16* q;        // (B, Cin), read by kHadamardA alone
   const __nv_bfloat16* w;        // (K, Cin, Cout)
   const float* bias;             // (Cout)
   const float* scale;            // (Cout)
@@ -141,14 +166,32 @@ __device__ __forceinline__ uint4 load_unaligned(const __nv_bfloat16* row,
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
+// 8 channels of v times the same 8 of q: bf16 x bf16 is exact in fp32, so
+// one rounding to bf16, as the plain version's bf16 multiply.
+__device__ __forceinline__ uint4 hadamard(uint4 v, uint4 q) {
+  const uint32_t* vv = reinterpret_cast<const uint32_t*>(&v);
+  const uint32_t* qq = reinterpret_cast<const uint32_t*>(&q);
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fv = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(vv + i));
+    const float2 fq = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(qq + i));
+    r[i] = pack_bf16x2(fv.x * fq.x, fv.y * fq.y);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
 // SPLIT = 1: a block computes all Cout = 64 * NW columns of its 64 rows.
 // SPLIT = 2 or 4: a cluster of SPLIT blocks shares the row tile, block
 // rank r computes columns r * 64 * NW .. of Cout = 64 * NW * SPLIT (each
 // stages the same A; only the LayerNorm row sums cross, through
 // distributed shared memory): SPLIT times the blocks where the row tiles
-// alone leave SMs idle. TMA_A: A comes by TMA through `xmap` (K = 1,
-// stride 1, Cin % 8 == 0); otherwise `xmap` is not read.
-template <int NW, int SPLIT, bool TMA_A>
+// alone leave SMs idle. A: where A comes from (ASource); kTmaA copies it
+// through `xmap` (K = 1, stride 1, Cin % 8 == 0), the others do not read
+// `xmap`.
+template <int NW, int SPLIT, int A>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_ln_relu_kernel(const __grid_constant__ CUtensorMap wmap,
                         const __grid_constant__ CUtensorMap xmap,
@@ -160,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kN = G::kCout / 2;  // columns of each consumer warpgroup
   constexpr int kAcc = kN / 2;      // fp32 accumulators a consumer thread
   constexpr uint32_t kBBytes = kBK * G::kCout * 2;
-  constexpr uint32_t kTileBytes = kBBytes + (TMA_A ? kATileBytes : 0);
+  constexpr uint32_t kTileBytes = kBBytes + (A == kTmaA ? kATileBytes : 0);
   static_assert(kS >= 3 && kLag >= 1, "the pipeline needs three stages");
   static_assert(kN >= 32 && SPLIT <= kMaxSplit, "no such wgmma");
 
@@ -179,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
     for (int s = 0; s < kS; ++s) {
       // The copying thread's arrival, + every producer's with cp.async.
-      mbar_init(full(s), TMA_A ? 1 : kProducers + 1);
+      mbar_init(full(s), A == kTmaA ? 1 : kProducers + 1);
       mbar_init(empty(s), 2);              // one per consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -194,8 +237,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (tid < kProducers) {
     // Producer warpgroup.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (TMA_A) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Regs<A, kAcc>::kProducer));
+    if (A == kTmaA) {
       // Thread 0 copies both tiles of every k-tile (K = 1: k-tile kt is
       // channels kt * kBK ..); the rest only join the cluster's barrier.
       for (int kt = 0; kt < n_k && tid == 0; ++kt) {
@@ -212,11 +256,91 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (SPLIT > 1) cluster_sync();  // the consumers' LayerNorm exchange
       return;
     }
-    // Thread 0 copies each weight tile with TMA. All 128 copy A: 16-byte
-    // unit aj (channels 8 aj .. 8 aj + 7 of the chunk) of tile rows ar +
-    // 16 i. vrow[i] is that row's video's first input row, t0[i] its input
-    // time at tap 0 (T for a row past M: never in [0, T)).
+    // Thread 0 copies each weight tile with TMA. All 128 stage A: 16-byte
+    // unit aj (channels 8 aj .. 8 aj + 7 of the chunk) of rows ar + 16 i.
     const int aj = tid & 7, ar = tid >> 3;
+    const bool aligned = (a.Cin & 7) == 0;
+    if (A == kHadamardA) {
+      // Stride 1, odd K, T_out = T. A chunk's window of kBM + K - 1 input
+      // rows (window row w = ar + 16 i is flattened input row m0 - left +
+      // w, clamped to a valid row) is loaded and multiplied once, in
+      // registers (channels 8 aj .. 8 aj + 7 of the chunk, each row times
+      // its own video's q), then stored into each tap's A tile at row w -
+      // tap. keep[i] bit tap says whether that tile row takes window row w
+      // (its own video's input at t - left + tap lies in [0, T)) or zeros.
+      // The next chunk's loads are issued before this chunk's K tiles are
+      // stored.
+      const int win = kBM + a.K - 1;
+      int src[kWinUnits], qb[kWinUnits];
+      unsigned keep[kWinUnits];
+#pragma unroll
+      for (int i = 0; i < kWinUnits; ++i) {
+        const int w = ar + 16 * i;
+        src[i] = min(max(m0 - a.left + w, 0), a.M - 1);
+        qb[i] = src[i] / a.T;
+        keep[i] = 0u;
+        for (int tap = 0; tap < a.K; ++tap) {
+          const int r = w - tap, gm = m0 + r;
+          if (r < 0 || r >= kBM || gm >= a.M) continue;
+          const int ts = gm % a.T - a.left + tap;
+          if (ts >= 0 && ts < a.T) keep[i] |= 1u << tap;
+        }
+      }
+      uint4 vn[kWinUnits] = {}, qn[kWinUnits] = {};
+      auto fetch = [&](int chunk) {
+        const int c = chunk * kBK + 8 * aj;
+#pragma unroll
+        for (int i = 0; i < kWinUnits; ++i) {
+          if (ar + 16 * i >= win) continue;
+          const __nv_bfloat16* vr = a.x + static_cast<size_t>(src[i]) * a.Cin;
+          const __nv_bfloat16* qr = a.q + static_cast<size_t>(qb[i]) * a.Cin;
+          if (c >= a.Cin) {
+            vn[i] = qn[i] = make_uint4(0u, 0u, 0u, 0u);
+          } else if (aligned) {
+            vn[i] = __ldg(reinterpret_cast<const uint4*>(vr + c));
+            qn[i] = __ldg(reinterpret_cast<const uint4*>(qr + c));
+          } else {
+            vn[i] = load_unaligned(vr, c, a.Cin);
+            qn[i] = load_unaligned(qr, c, a.Cin);
+          }
+        }
+      };
+      fetch(0);
+      int kt = 0;
+      for (int chunk = 0; chunk < a.nkc; ++chunk) {
+        uint4 p[kWinUnits];
+#pragma unroll
+        for (int i = 0; i < kWinUnits; ++i) p[i] = hadamard(vn[i], qn[i]);
+        if (chunk + 1 < a.nkc) fetch(chunk + 1);
+        for (int tap = 0; tap < a.K; ++tap, ++kt) {
+          const int s = kt % kS;
+          if (kt >= kS) mbar_wait(empty(s), (kt / kS - 1) & 1);
+          if (tid == 0) {
+            mbar_arrive_expect_tx(full(s), kTileBytes);
+#pragma unroll
+            for (int nb = 0; nb < NW; ++nb)
+              tma_load_3d(b_tile(s) + nb * (kBK * 128), &wmap, full(s),
+                          col_base + 64 * nb, chunk * kBK, tap);
+          }
+          unsigned char* at = ring_ptr + (a_tile(s) - ring);
+#pragma unroll
+          for (int i = 0; i < kWinUnits; ++i) {
+            const int r = ar + 16 * i - tap;
+            if (r < 0 || r >= kBM) continue;
+            *reinterpret_cast<uint4*>(at + r * 128 + ((aj ^ (r & 7)) << 4)) =
+                (keep[i] >> tap) & 1u ? p[i] : make_uint4(0u, 0u, 0u, 0u);
+          }
+          // A was written through the generic proxy; wgmma reads through
+          // the async one.
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(full(s));
+        }
+      }
+      if (SPLIT > 1) cluster_sync();  // the consumers' LayerNorm exchange
+      return;
+    }
+    // Tile row ar + 16 i: vrow[i] is its video's first input row, t0[i] its
+    // input time at tap 0 (T for a row past M: never in [0, T)).
     int vrow[kUnits], t0[kUnits];
 #pragma unroll
     for (int i = 0; i < kUnits; ++i) {
@@ -227,7 +351,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // Swizzled offset of unit aj in row ar + 16 i: (ar + 16 i) % 8 is ar % 8.
     const uint32_t unit = ar * 128 + ((aj ^ (ar & 7)) << 4);
-    const bool aligned = (a.Cin & 7) == 0;
     int kt = 0;
     for (int chunk = 0; chunk < a.nkc; ++chunk) {
       const int c = chunk * kBK + 8 * aj;
@@ -276,7 +399,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // = 64 each takes half of the one 64-column box (a 64-byte start
     // offset inside the swizzle row, as the k16 steps of A take 32-byte
     // offsets).
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        Regs<A, kAcc>::kConsumer));
     const int ct = tid - kProducers, wg = ct >> 7;
     const uint32_t b_col = (wg * kN / 64) * (kBK * 128) + (wg * kN % 64) * 2;
     float acc[kAcc];
@@ -412,13 +536,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int NW, int SPLIT, bool TMA_A>
+template <int NW, int SPLIT, int A>
 cudaError_t launch_kernel(const ConvArgs& a, int grid, cudaStream_t stream) {
   using G = Geometry<NW>;
+  bind_context();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv_ln_relu_kernel<NW, SPLIT, TMA_A>,
+        conv_ln_relu_kernel<NW, SPLIT, A>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
     if (e != cudaSuccess) return e;
     configured = true;
@@ -430,7 +555,7 @@ cudaError_t launch_kernel(const ConvArgs& a, int grid, cudaStream_t stream) {
   // channels x 64 rows, zeros past Cin and past the last row.
   static_assert(kBK == kBM, "a box of the weight's map is kBK rows");
   xmap = wmap;
-  if (TMA_A && (e = weight_map(&xmap, a.x, 1, a.M, a.Cin)) != cudaSuccess)
+  if (A == kTmaA && (e = weight_map(&xmap, a.x, 1, a.M, a.Cin)) != cudaSuccess)
     return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
@@ -444,37 +569,42 @@ cudaError_t launch_kernel(const ConvArgs& a, int grid, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = SPLIT > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, conv_ln_relu_kernel<NW, SPLIT, TMA_A>, wmap,
+  e = cudaLaunchKernelEx(&cfg, conv_ln_relu_kernel<NW, SPLIT, A>, wmap,
                          xmap, a);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// A by TMA where output row gm reads input row gm and rows are 16-byte
-// aligned; by cp.async otherwise.
-template <int NW, int SPLIT>
+// The Hadamard variant for fused_fusion.cu; otherwise A by TMA where
+// output row gm reads input row gm and rows are 16-byte aligned, by
+// cp.async where not.
+template <int NW, int SPLIT, bool H>
 cudaError_t launch_nw(const ConvArgs& a, int grid, cudaStream_t stream) {
-  return a.K == 1 && a.stride == 1 && (a.Cin & 7) == 0
-             ? launch_kernel<NW, SPLIT, true>(a, grid, stream)
-             : launch_kernel<NW, SPLIT, false>(a, grid, stream);
+  if constexpr (H)
+    return launch_kernel<NW, SPLIT, kHadamardA>(a, grid, stream);
+  else
+    return a.K == 1 && a.stride == 1 && (a.Cin & 7) == 0
+               ? launch_kernel<NW, SPLIT, kTmaA>(a, grid, stream)
+               : launch_kernel<NW, SPLIT, kGatherA>(a, grid, stream);
 }
 
 // The caller's split and grid must be ones this source builds: a split of
 // Cout 512 over 2 or 4 blocks, else one block a tile; grid = split *
-// ceil(M / kBM).
+// ceil(M / kBM). H: the Hadamard variant (x is v, convolved as v * q[b]).
+template <bool H>
 cudaError_t launch_conv(const ConvArgs& a, int cout, int split, int grid,
                         cudaStream_t stream) {
   if (grid != split * ((a.M + kBM - 1) / kBM) || grid <= 0)
     return cudaErrorInvalidValue;
   if (split == 2)
-    return cout == 512 ? launch_nw<4, 2>(a, grid, stream) : cudaErrorInvalidValue;
+    return cout == 512 ? launch_nw<4, 2, H>(a, grid, stream) : cudaErrorInvalidValue;
   if (split == 4)
-    return cout == 512 ? launch_nw<2, 4>(a, grid, stream) : cudaErrorInvalidValue;
+    return cout == 512 ? launch_nw<2, 4, H>(a, grid, stream) : cudaErrorInvalidValue;
   if (split != 1) return cudaErrorInvalidValue;
   switch (cout) {
-    case 64: return launch_nw<1, 1>(a, grid, stream);
-    case 128: return launch_nw<2, 1>(a, grid, stream);
-    case 256: return launch_nw<4, 1>(a, grid, stream);
-    case 512: return launch_nw<8, 1>(a, grid, stream);
+    case 64: return launch_nw<1, 1, H>(a, grid, stream);
+    case 128: return launch_nw<2, 1, H>(a, grid, stream);
+    case 256: return launch_nw<4, 1, H>(a, grid, stream);
+    case 512: return launch_nw<8, 1, H>(a, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }

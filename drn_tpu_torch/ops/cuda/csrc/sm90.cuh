@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (stem_sm90.cuh, conv_sm90.cuh): shared-memory addresses, mbarriers,
-// thread block clusters and distributed shared memory, the weight's TMA
-// tensor map and its loads, the 128-byte-swizzled wgmma descriptors and
+// thread block clusters and distributed shared memory, the thread's
+// context before a launch, the weight's TMA tensor map and its loads, the 128-byte-swizzled wgmma descriptors and
 // the wgmma m64nNk16 products (N = 32, 64, 128, 256; bf16 in, fp32
 // accumulated in registers).
 #pragma once
@@ -256,6 +256,20 @@ __device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t da,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// Before a launch: make the device's primary context current on this
+// thread. A thread whose first CUDA call is one of these launches has none
+// yet (autograd's backward thread, where a Function's backward may start
+// with a kernel of this port, or any new host thread), and there the first
+// launch came back cudaErrorInvalidValue, the later ones not (an H100,
+// CUDA 12.8). cudaSetDevice binds the current device's context (CUDA 12;
+// unlike cudaFree(0), it is allowed while a CUDA graph is captured); the
+// error state is then cleared, so the launch reports its own.
+inline void bind_context() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
+  cudaGetLastError();
 }
 
 // The weight (K, Cin, Cout) bf16 as a 3-D TMA tensor map: boxes of 64

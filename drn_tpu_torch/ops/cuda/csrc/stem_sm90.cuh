@@ -410,6 +410,7 @@ cudaError_t launch_nw(const StemArgs& a, int stages, int smem_bytes, int grid,
   using G = Geometry<NW>;
   if (stages != G::kStages || smem_bytes != G::kSmemBytes)
     return cudaErrorInvalidValue;
+  bind_context();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -5,9 +5,11 @@
 `fused_fusion_block`: relu(LN(conv1d(v ⊙ q[:, None, :], w, SAME) + b) ·
 scale + offset). `fused_fusion`: conv1d(v ⊙ q[:, None, :], w, SAME) + b,
 no epilogue, one rounding to v's dtype. The CUDA kernels
-(csrc/fused_fusion.cu) form the Hadamard product while they stage a tile
-of v, so v ⊙ q never reaches HBM. A CUDA tensor launches a kernel or
-raises; a CPU tensor takes the plain version (`*_reference`).
+(csrc/fused_fusion.cu) are the Hadamard variant of the conv block's kernel
+(csrc/conv_sm90.cuh): its producer forms v ⊙ q[b] in registers while it
+stages a tile of A, so the product never reaches HBM. The launch geometry
+is the conv block's, `conv_plan(B·T, Dout, SMs)`. A CUDA tensor launches a
+kernel or raises; a CPU tensor takes the plain version (`*_reference`).
 
 `fused_fusion_backward` is the JAX package's hand-written VJP of
 `fused_fusion` (`_bwd`), term for term: its dx is a stride-1 conv without
@@ -24,8 +26,12 @@ from drn_tpu_torch.ops.cuda import _build
 from drn_tpu_torch.ops.cuda.conv_block import (check_cout, check_cuda_inputs,
                                                conv_ln_relu,
                                                conv_ln_relu_reference,
-                                               conv_vjp, stream_of)
+                                               conv_plan, conv_vjp, stream_of)
 from drn_tpu_torch.utils import flops
+
+# csrc/conv_sm90.cuh (kMaxK): a producer thread of the Hadamard variant
+# holds a chunk's (rows + K - 1)-row window.
+MAX_K = 17
 
 
 def fused_fusion_block_reference(v, q, w, b, scale, offset):
@@ -42,11 +48,14 @@ def fused_fusion_reference(v, q, w, b):
     return conv_ln_relu_reference(x, w, b, None, None, 1, False, False)
 
 
-def _check(name, v, q, w, b, **epilogue):
-    bsz, _, d = v.shape
+def _launch(name, v, q, w, b, **epilogue):
+    """Check the inputs, launch `drn_<name>` on conv_plan's split and grid,
+    count the launch and its FLOPs; the (B, T, Dout) bf16 output."""
+    bsz, t, d = v.shape
     k, _, dout = w.shape
-    if k % 2 == 0:
-        raise ValueError(f"{name}: odd kernel width needed, got {k}")
+    if k % 2 == 0 or k > MAX_K:
+        raise ValueError(f"{name}: K={k}; the kernel takes odd K up to "
+                         f"{MAX_K}")
     check_cout(name, dout)
     check_cuda_inputs(
         name,
@@ -54,28 +63,29 @@ def _check(name, v, q, w, b, **epilogue):
         q=(q, torch.bfloat16, (bsz, d)),
         w=(w, torch.bfloat16, (k, d, dout)),
         b=(b, torch.float32, (dout,)),
-        **{n: (t, torch.float32, (dout,)) for n, t in epilogue.items()},
+        **{n: (t_, torch.float32, (dout,)) for n, t_ in epilogue.items()},
     )
+    plan = conv_plan(bsz * t, dout, torch.cuda.get_device_properties(
+        v.device).multi_processor_count)
+    out = torch.empty((bsz, t, dout), dtype=torch.bfloat16, device=v.device)
+    ptrs = [x.data_ptr() for x in (v, q, w, b, *epilogue.values(), out)]
+    fn = _build.entry("fused_fusion", "drn_" + name, len(ptrs), 7)
+    rc = fn(*ptrs, bsz, t, d, dout, k, *plan, stream_of(v))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    flops.add_conv(bsz, t, d, dout, k)
+    return out
 
 
 def fused_fusion_block(v, q, w, b, scale, offset):
     """v: (B, T, D); q: (B, D); w: (K, D, Dout) WIO, K odd;
     b/scale/offset: (Dout,). Output (B, T, Dout) in v.dtype. On CUDA:
-    v, q, w bf16; b, scale, offset fp32."""
+    v, q, w bf16; b, scale, offset fp32; K up to MAX_K."""
     if v.device.type == "cpu":
         return fused_fusion_block_reference(v, q, w, b, scale, offset)
-    _check("fused_fusion_block", v, q, w, b, scale=scale, offset=offset)
-    bsz, t, d = v.shape
-    k, _, dout = w.shape
-    out = torch.empty((bsz, t, dout), dtype=torch.bfloat16, device=v.device)
-    fn = _build.entry("fused_fusion", "drn_fused_fusion_block", 7, 5)
-    rc = fn(v.data_ptr(), q.data_ptr(), w.data_ptr(), b.data_ptr(),
-            scale.data_ptr(), offset.data_ptr(), out.data_ptr(), bsz, t, d,
-            dout, k, stream_of(v))
-    if rc != 0:
-        raise RuntimeError(f"fused_fusion_block: CUDA error {rc} at launch")
+    out = _launch("fused_fusion_block", v, q, w, b, scale=scale,
+                  offset=offset)
     fused_fusion_block.launches += 1
-    flops.add_conv(bsz, t, d, dout, k)
     return out
 
 
@@ -85,20 +95,11 @@ fused_fusion_block.launches = 0
 def fused_fusion(v, q, w, b):
     """conv1d(v ⊙ q[:, None, :], w, SAME) + b. v: (B, T, D); q: (B, D);
     w: (K, D, Dout) WIO, K odd; b: (Dout,). Output (B, T, Dout) in
-    v.dtype. On CUDA: v, q, w bf16; b fp32."""
+    v.dtype. On CUDA: v, q, w bf16; b fp32; K up to MAX_K."""
     if v.device.type == "cpu":
         return fused_fusion_reference(v, q, w, b)
-    _check("fused_fusion", v, q, w, b)
-    bsz, t, d = v.shape
-    k, _, dout = w.shape
-    out = torch.empty((bsz, t, dout), dtype=torch.bfloat16, device=v.device)
-    fn = _build.entry("fused_fusion", "drn_fused_fusion", 5, 5)
-    rc = fn(v.data_ptr(), q.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), bsz, t, d, dout, k, stream_of(v))
-    if rc != 0:
-        raise RuntimeError(f"fused_fusion: CUDA error {rc} at launch")
+    out = _launch("fused_fusion", v, q, w, b)
     fused_fusion.launches += 1
-    flops.add_conv(bsz, t, d, dout, k)
     return out
 
 

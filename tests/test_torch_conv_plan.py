@@ -1,7 +1,7 @@
-"""The conv_ln_relu kernel's launch geometry
-(`drn_tpu_torch.ops.cuda.conv_block.conv_plan`) at every conv site of every
-configuration of the port's registry, at its eval and its train batch, on
-the CPU.
+"""The launch geometry of csrc/conv_sm90.cuh's kernels
+(`drn_tpu_torch.ops.cuda.conv_block.conv_plan`: conv_ln_relu and the
+fusion kernels) at every conv site and fusion level of every configuration
+of the port's registry, at its eval and its train batch, on the CPU.
 
 Python decides only what the C source cannot see, the split of a row
 tile's columns over a cluster (from the card's SM count), and hence the
@@ -28,10 +28,11 @@ from drn_tpu_torch.ops.cuda.conv_block import (CONV_SPLITS, TILE_ROWS,
 H100_SMS = 132
 SOURCE = (Path(conv_block.__file__).parent / "csrc"
           / "conv_sm90.cuh").read_text()
-# (Cout, split) of each kernel the source launches: launch_nw<NW, SPLIT>
-# computes 64 * NW of the 64 * NW * SPLIT columns of a row tile.
+# (Cout, split) of each kernel the source launches: launch_nw<NW, SPLIT,
+# H> computes 64 * NW of the 64 * NW * SPLIT columns of a row tile, for the
+# conv block (H false) and the fusion kernels (H true) alike.
 BUILT = {(64 * int(nw) * int(sp), int(sp))
-         for nw, sp in re.findall(r"launch_nw<(\d+), (\d+)>\(a", SOURCE)}
+         for nw, sp in re.findall(r"launch_nw<(\d+), (\d+), H>\(a", SOURCE)}
 CASES = [(name, which) for name in list_configs() for which in ("eval", "train")]
 
 
@@ -94,6 +95,41 @@ def test_flagship_eval_grids():
         "iou_mix_0": 84, "iou_mix_1": 84}
 
 
+@pytest.mark.parametrize("name,which", CASES)
+def test_fusion_plan_at_each_config(name, which):
+    """The fusion kernels (conv_sm90.cuh's Hadamard variant) launch on
+    conv_plan(B·T, D, SMs) at each pyramid level: the same properties as
+    the conv block's launches."""
+    cfg = get_config(name)
+    m = cfg.model
+    b = cfg.eval.batch_size if which == "eval" else cfg.data.batch_size
+    for level in range(m.num_levels):
+        rows = b * (cfg.data.num_clips // 2 ** level)
+        for sms in (H100_SMS, 114):
+            plan = conv_plan(rows, m.hidden_dim, sms)
+            assert (m.hidden_dim, plan.split) in BUILT
+            tiles = plan.grid // plan.split
+            assert tiles * TILE_ROWS >= rows > (tiles - 1) * TILE_ROWS
+            assert plan.split == 1 or plan.grid <= sms
+
+
+@pytest.mark.parametrize("b,want", [
+    (48, {64: (2, 96), 32: (4, 96), 16: (4, 48)}),
+    (384, {64: (1, 384), 32: (1, 192), 16: (1, 96)})])
+def test_flagship_fusion_grids(b, want):
+    """charades_c3d_batched_eval's three fusion levels (T = 64, 32, 16) on
+    an H100, through the plan the fusion wrappers call: at the eval batch
+    48, 24 and 12 row tiles split over 2, 4 and 4 blocks; at the training
+    batch 384, 192 and 96 tiles, one block each."""
+    from drn_tpu_torch.ops.cuda import fused_fusion
+
+    assert fused_fusion.conv_plan is conv_plan
+    cfg = get_config("charades_c3d_batched_eval")
+    levels = [cfg.data.num_clips // 2 ** l for l in range(cfg.model.num_levels)]
+    assert {t: tuple(conv_plan(b * t, cfg.model.hidden_dim, H100_SMS))
+            for t in levels} == want
+
+
 @pytest.mark.parametrize("tiles", [1, 33, 34, 66, 67, 684])
 def test_split_boundaries(tiles):
     """At Cout 512 the largest built split whose blocks fit the SMs; none
@@ -105,6 +141,17 @@ def test_split_boundaries(tiles):
     assert plan.grid == plan.split * tiles
     for cout in (64, 128, 256):
         assert conv_plan(m - 1, cout, H100_SMS) == (1, tiles)
+
+
+def test_fusion_max_k_is_the_sources():
+    """The fusion wrappers refuse K past what the Hadamard producer's
+    window holds: kBM + K - 1 rows in 16 * kWinUnits."""
+    from drn_tpu_torch.ops.cuda import fused_fusion
+
+    c = {n: int(v) for n, v in re.findall(
+        r"^constexpr int (kBM|kWinUnits) = (\d+);", SOURCE, re.M)}
+    assert "constexpr int kMaxK = 16 * kWinUnits - kBM + 1;" in SOURCE
+    assert fused_fusion.MAX_K == 16 * c["kWinUnits"] - c["kBM"] + 1 == 17
 
 
 def test_conv_plan_refuses_a_width_it_does_not_build():
@@ -147,10 +194,15 @@ def test_conv_block_sites_are_the_forwards_launches(name):
 
 
 def test_conv_sites_probe_times_the_flagship_launches():
-    """probes/conv_sites.py times the flagship's 15 launches at B=48 and
-    B=384; the script it runs in each tree compiles."""
+    """probes/conv_sites.py times the flagship's 15 conv launches and the
+    3 levels of both fusion kernels at B=48 and B=384; the script it runs
+    in each tree compiles."""
     from drn_tpu_torch.probes import conv_sites
 
     rows = conv_sites.sites()
     assert len(rows) == 30 and {r[1] for r in rows} == {48, 384}
-    compile(conv_sites.TIMER % (conv_sites.sites((48,)),), "timer", "exec")
+    fusion = conv_sites.fusion_sites()
+    assert len(fusion) == 12 and {r[1] for r in fusion} == {48, 384}
+    assert {r[2] for r in fusion} == {64, 32, 16}
+    compile(conv_sites.TIMER % (conv_sites.sites((48,)), fusion), "timer",
+            "exec")

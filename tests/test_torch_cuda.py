@@ -151,6 +151,103 @@ def test_fused_stem_kernel_at_the_split_boundary(dev, split):
                                fused_stem_reference(*args).float(), **TOL)
 
 
+# Both fusion kernels (conv_sm90.cuh's Hadamard variant) at every width
+# they instantiate x K 1 (never A by TMA: that would copy v without q), 3
+# and 5 x T 64, 21 (ragged: tiles across videos) and 16 (a 64-row tile
+# spans 5 videos) x D 512 and 500 (rows not 16-byte aligned: v and q
+# channel by channel).
+FUSION_CASES = [(name, t, d, dout, k)
+                for name in ("fused_fusion_block", "fused_fusion")
+                for dout in (64, 128, 256, 512) for k in (1, 3, 5)
+                for t in (64, 21, 16) for d in (512, 500)]
+
+
+def _fusion_args(dev, name, b, t, d, dout, k):
+    v, q = _randn(dev, b, t, d), _randn(dev, b, d, scale=0.5, seed=5)
+    w = _randn(dev, k, d, dout, scale=(k * d) ** -0.5, seed=6)
+    epi = _epilogue(dev, dout)
+    return (v, q, w, *(epi if name == "fused_fusion_block" else epi[:1]))
+
+
+@pytest.mark.parametrize("name,t,d,dout,k", FUSION_CASES)
+def test_fusion_kernels(dev, name, t, d, dout, k):
+    from drn_tpu_torch.ops.cuda import fused_fusion as ff
+
+    args = _fusion_args(dev, name, 6, t, d, dout, k)
+    before = launch_counts()[name]
+    got = getattr(ff, name)(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 1
+    torch.testing.assert_close(
+        got.float(), getattr(ff, name + "_reference")(*args).float(), **TOL)
+
+
+@pytest.mark.parametrize("split,part,more", [(4, 4, 0), (2, 4, 1), (2, 2, 0),
+                                             (1, 2, 1)])
+def test_fusion_kernels_at_the_split_boundaries(dev, split, part, more):
+    """Dout 512 at the most row tiles that are still split over a 4-block
+    cluster, over a 2-block one, and one tile more than each, as the conv
+    block's test: with the LayerNorm (fused_fusion_block, row sums across
+    the cluster) and without (fused_fusion)."""
+    from drn_tpu_torch.ops.cuda import fused_fusion as ff
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b = sms // part + more  # one 64-row tile a video
+    assert conv_plan(b * 64, 512, sms).split == split
+    for name in ("fused_fusion_block", "fused_fusion"):
+        args = _fusion_args(dev, name, b, 64, 128, 512, 3)
+        torch.testing.assert_close(
+            getattr(ff, name)(*args).float(),
+            getattr(ff, name + "_reference")(*args).float(), **TOL)
+
+
+def test_every_kernel_launches_from_a_new_thread(dev):
+    """A thread whose first CUDA call is one of the port's launches, as
+    autograd's backward thread is where a Function's backward starts with
+    a kernel (FusedFusionBlockFn's recompute): each kernel launches there
+    and agrees with its plain version."""
+    import threading
+
+    from drn_tpu_torch.ops.cuda import fused_fusion as ff
+    from drn_tpu_torch.ops.cuda import pallas_block, pallas_block_reference
+
+    x, v = _randn(dev, 2, 64, 128), _randn(dev, 2, 64, 512)
+    q = _randn(dev, 2, 512, seed=5)
+    w = _randn(dev, 3, 128, 512, scale=0.05, seed=4)
+    wf = _randn(dev, 3, 512, 512, scale=0.03, seed=6)
+    epi = _epilogue(dev, 512)
+    xs = _randn(dev, 2, 64, 128, dtype=torch.float32, seed=7)
+    ones, zeros = torch.ones_like(epi[1][:128]), torch.zeros_like(epi[1][:128])
+    calls = {
+        "conv_ln_relu": ((x, w, *epi), conv_ln_relu, conv_ln_relu_reference),
+        "fused_stem": ((xs, ones, zeros, w, *epi, torch.bfloat16), fused_stem,
+                       fused_stem_reference),
+        "fused_fusion": ((v, q, wf, epi[0]), ff.fused_fusion,
+                         ff.fused_fusion_reference),
+        "fused_fusion_block": ((v, q, wf, *epi), ff.fused_fusion_block,
+                               ff.fused_fusion_block_reference),
+        "pallas_block": ((v, q, wf, epi[0].bfloat16(), *epi[1:], 1e-6),
+                         pallas_block, pallas_block_reference),
+    }
+    for name, (args, kernel, plain) in calls.items():
+        got = {}
+
+        def run():
+            try:
+                with torch.no_grad():
+                    got["out"] = kernel(*args)
+                torch.cuda.synchronize()
+            except Exception as e:  # reported below, on the test's thread
+                got["error"] = e
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        assert "error" not in got, (name, got.get("error"))
+        torch.testing.assert_close(got["out"].float(),
+                                   plain(*args).float(), **TOL)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = _randn(dev, 2, 16, 64)
     w = _randn(dev, 3, 64, 64)
@@ -170,6 +267,27 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         conv_ln_relu(x, _randn(dev, 3, 64, 60), *_epilogue(dev, 60))
     with pytest.raises(RuntimeError):
         conv_ln_relu(x, w.clone().requires_grad_(), b, s, o)
+    q = _randn(dev, 2, 64)
+    for fusion, epi in ((fused_fusion_block, (s, o)), (fused_fusion, ())):
+        with pytest.raises(ValueError):                  # even K
+            fusion(x, q, _randn(dev, 2, 64, 64), b, *epi)
+        with pytest.raises(ValueError):                  # K past MAX_K
+            fusion(x, q, _randn(dev, 19, 64, 64), b, *epi)
+        with pytest.raises(ValueError):                  # Cout not built
+            fusion(x, q, _randn(dev, 3, 64, 96), *_epilogue(dev, 96)[
+                :1 + len(epi)])
+        with pytest.raises(TypeError):                   # fp32 v
+            fusion(x.float(), q, w, b, *epi)
+    # A split or grid the source does not build: the entry point refuses.
+    from drn_tpu_torch.ops.cuda import _build
+    from drn_tpu_torch.ops.cuda.conv_block import stream_of
+    out = torch.empty_like(x)
+    fn = _build.entry("fused_fusion", "drn_fused_fusion", 5, 7)
+    ptrs = [t.data_ptr() for t in (x, q, w, b, out)]
+    assert fn(*ptrs, 2, 16, 64, 64, 3, 1, 1, stream_of(x)) == 0  # the plan
+    for split, grid in ((2, 2), (1, 2), (3, 3), (4, 4)):  # 64 columns: 1
+        assert fn(*ptrs, 2, 16, 64, 64, 3, split, grid, stream_of(x)) != 0
+    torch.cuda.synchronize()
 
 
 def test_eval_step_kernels_vs_plain(dev):

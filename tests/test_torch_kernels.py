@@ -90,12 +90,24 @@ def test_conv_ln_relu_plain_matches_pallas(dtype, k, stride, t, use_norm,
     _close(got, ref, xatol, xrtol)
 
 
+# (T, K, D) of the fusion kernels' plain versions against the Pallas
+# kernels: the flagship's K=3 at an even and a ragged T, K=1 and K=5 (the
+# JAX kernels take any odd K), and a D that is not a multiple of 8 (the
+# CUDA kernels stage such rows channel by channel). The first two keep
+# their earlier ids.
+FUSION_CASES = [pytest.param(32, 3, 128, id="32"),
+                pytest.param(57, 3, 128, id="57"),
+                pytest.param(32, 1, 128, id="32-k1"),
+                pytest.param(21, 5, 128, id="21-k5"),
+                pytest.param(32, 3, 20, id="32-d20")]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("t", [32, 57])
-def test_fused_fusion_block_plain_matches_pallas(dtype, t):
+@pytest.mark.parametrize("t,k,d", FUSION_CASES)
+def test_fused_fusion_block_plain_matches_pallas(dtype, t, k, d):
     jdt, tdt, atol, rtol, xatol, xrtol = DTYPES[dtype]
-    p = _np_inputs(t=t)
-    q = np.random.default_rng(1).normal(size=(4, 128)).astype(np.float32)
+    p = _np_inputs(t=t, cin=d, cout=d, k=k)
+    q = np.random.default_rng(1).normal(size=(4, d)).astype(np.float32)
     args_j = (_jax(p["x"], jdt), _jax(q, jdt), _jax(p["w"], jdt),
               _jax(p["b"], jdt), _jax(p["scale"], jnp.float32),
               _jax(p["offset"], jnp.float32))
@@ -195,11 +207,11 @@ def _port_grads(fn, args, g):
     return out, [a.grad for a in leaves if isinstance(a, torch.Tensor)]
 
 
-def _fusion_inputs(t, dtype, seed=1):
+def _fusion_inputs(t, dtype, seed=1, k=3, d=128):
     jdt, tdt = DTYPES[dtype][:2]
-    p = _np_inputs(t=t)
-    q = np.random.default_rng(seed).normal(size=(4, 128)).astype(np.float32)
-    g = np.random.default_rng(seed + 1).normal(size=(4, t, 128)).astype(
+    p = _np_inputs(t=t, cin=d, cout=d, k=k)
+    q = np.random.default_rng(seed).normal(size=(4, d)).astype(np.float32)
+    g = np.random.default_rng(seed + 1).normal(size=(4, t, d)).astype(
         np.float32)
     jargs = (_jax(p["x"], jdt), _jax(q, jdt), _jax(p["w"], jdt),
              _jax(p["b"], jdt))
@@ -209,10 +221,10 @@ def _fusion_inputs(t, dtype, seed=1):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("t", [32, 57])
-def test_fused_fusion_plain_matches_pallas(dtype, t):
+@pytest.mark.parametrize("t,k,d", FUSION_CASES)
+def test_fused_fusion_plain_matches_pallas(dtype, t, k, d):
     _, atol, rtol, xatol, xrtol = DTYPES[dtype][1:]
-    _, jargs, targs, _ = _fusion_inputs(t, dtype)
+    _, jargs, targs, _ = _fusion_inputs(t, dtype, k=k, d=d)
     want = pl_fusion.fused_fusion(*jargs)
     ref = pl_fusion.xla_reference(*jargs)
     before = launch_counts()
