@@ -42,7 +42,8 @@ non-zero exit code:
               at its shapes (B=256, T=64, D=512, K=3) with the launch count
               of that run: `pallas_block` against the probe's `xla_block`,
               and the times of the kernel, its plain version and the
-              library yardstick (cuDNN conv + layer_norm + ReLU); then the
+              library yardstick (cuDNN conv + layer_norm + ReLU), its grid
+              (`blocks`), cluster `split` and achieved `tflops`; then the
               kernel against its plain version at K=3 and at K=4 (B=32).
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
@@ -460,6 +461,7 @@ def probe_phase(dev):
     from drn_tpu_torch.ops.cuda import (launch_counts, pallas_block,
                                         pallas_block_reference,
                                         reset_launch_counts)
+    from drn_tpu_torch.ops.cuda.conv_block import conv_plan
     from drn_tpu_torch.probes import pallas_block_probe as probe
 
     reset_launch_counts()
@@ -486,6 +488,8 @@ def probe_phase(dev):
     flops = 2 * b * t * k * d * d
     nbytes = 2 * (2 * b * t * d + b * d + k * d * d + d) + 8 * d
     bms, by = bound(flops, nbytes)
+    plan = conv_plan(b * t, d, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     return launches, dict(
         phase="probe", shape=dict(B=b, T=t, D=d, K=k),
         launches=launches["pallas_block"],
@@ -494,6 +498,7 @@ def probe_phase(dev):
         ms=res["ms"], plain_ms=res["plain_ms"],
         xla_block_ms=res["xla_block_ms"], library_ms=res["library_ms"],
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        blocks=plan.grid, split=plan.split, tflops=flops / res["ms"] / 1e9,
         device=res["device"])
 
 
@@ -546,8 +551,8 @@ def main() -> int:
     print(smi, flush=True)
 
     # Each kernel's entry source, the header its kernel is built on, and
-    # the TPU kernel it replaces. The fusion kernels are conv_sm90.cuh's
-    # Hadamard variant; only the probe's block is on the first template.
+    # the TPU kernel it replaces. The fusion kernels and the probe's block
+    # are conv_sm90.cuh's Hadamard variant.
     where = {
         "fused_stem": ("drn_tpu_torch/ops/cuda/csrc/stem.cu", "stem_sm90.cuh",
                        "drn_tpu/ops/pallas/stem.py:111"),
@@ -561,7 +566,7 @@ def main() -> int:
                          "conv_sm90.cuh",
                          "drn_tpu/ops/pallas/fused_fusion.py:61"),
         "pallas_block": ("drn_tpu_torch/ops/cuda/csrc/block_probe.cu",
-                         "conv_gemm.cuh", "scripts/pallas_block_probe.py:52"),
+                         "conv_sm90.cuh", "scripts/pallas_block_probe.py:52"),
     }
     # `pallas_block` at the probe's one shape, its own path.
     totals["probe", "pallas_block"] = Counter(

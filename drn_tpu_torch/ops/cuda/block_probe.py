@@ -3,14 +3,16 @@
 `::xla_block`.
 
 `pallas_block`: relu(LN(conv1d(v ⊙ q[:, None, :], w) + b) · scale +
-offset) in one kernel (csrc/block_probe.cu). It is the package's fusion
-block (`fused_fusion.fused_fusion_block`) under the probe's own contract:
+offset) in one kernel: csrc/block_probe.cu launches the Hadamard variant of
+the conv block's kernel (csrc/conv_sm90.cuh), as the package's fusion
+block (`fused_fusion.fused_fusion_block`) does, on the same launch
+geometry, `conv_plan(B·T, Dout, SMs)`, under the probe's own contract:
 
   * b is bf16, widened to fp32 before it is added to the fp32 accumulator;
   * the LayerNorm's eps is an argument;
-  * the input is padded with K // 2 zero rows on the left for any K, odd or
-    even (output row t reads rows t − K//2 + i): XLA's SAME for odd K, one
-    row further left than SAME for even K.
+  * the input is padded with K // 2 zero rows on the left for any K up to
+    MAX_K, odd or even (output row t reads rows t − K//2 + i): XLA's SAME
+    for odd K, one row further left than SAME for even K.
 
 The probe's `bb` argument is not carried over: it is the TPU kernel's batch
 block, the rows of B that one grid step holds in VMEM. Its grid is B // bb,
@@ -32,9 +34,10 @@ import torch.nn.functional as F
 
 from drn_tpu_torch.ops.cuda import _build
 from drn_tpu_torch.ops.cuda.conv_block import (LN_EPS, check_cout,
-                                               check_cuda_inputs, conv_taps,
-                                               layer_norm, same_padding,
-                                               stream_of)
+                                               check_cuda_inputs, conv_plan,
+                                               conv_taps, layer_norm,
+                                               same_padding, stream_of)
+from drn_tpu_torch.ops.cuda.fused_fusion import MAX_K
 from drn_tpu_torch.utils import flops
 
 
@@ -66,11 +69,14 @@ def xla_block(v, q, w, b, scale, offset, eps: float = LN_EPS):
 def pallas_block(v, q, w, b, scale, offset, eps: float = LN_EPS):
     """v: (B, T, D); q: (B, D); w: (K, D, Dout) WIO, any K; b/scale/offset:
     (Dout,). Output (B, T, Dout) in v.dtype. On CUDA: v, q, w and b bf16,
-    scale and offset fp32, Dout in KERNEL_COUTS."""
+    scale and offset fp32, Dout in KERNEL_COUTS, K up to MAX_K."""
     if v.device.type == "cpu":
         return pallas_block_reference(v, q, w, b, scale, offset, eps)
     bsz, t, d = v.shape
     k, _, dout = w.shape
+    if k > MAX_K:
+        raise ValueError(f"pallas_block: K={k}; the kernel takes K up to "
+                         f"{MAX_K}")
     check_cout("pallas_block", dout)
     check_cuda_inputs(
         "pallas_block",
@@ -81,11 +87,13 @@ def pallas_block(v, q, w, b, scale, offset, eps: float = LN_EPS):
         scale=(scale, torch.float32, (dout,)),
         offset=(offset, torch.float32, (dout,)),
     )
+    plan = conv_plan(bsz * t, dout, torch.cuda.get_device_properties(
+        v.device).multi_processor_count)
     out = torch.empty((bsz, t, dout), dtype=torch.bfloat16, device=v.device)
-    fn = _build.entry("block_probe", "drn_pallas_block", 7, 5, 1)
+    fn = _build.entry("block_probe", "drn_pallas_block", 7, 7, 1)
     rc = fn(v.data_ptr(), q.data_ptr(), w.data_ptr(), b.data_ptr(),
             scale.data_ptr(), offset.data_ptr(), out.data_ptr(), bsz, t, d,
-            dout, k, eps, stream_of(v))
+            dout, k, *plan, eps, stream_of(v))
     if rc != 0:
         raise RuntimeError(f"pallas_block: CUDA error {rc} at launch")
     pallas_block.launches += 1

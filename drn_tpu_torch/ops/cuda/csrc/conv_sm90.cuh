@@ -6,9 +6,10 @@
 // x (B, T, Cin) bf16; w (K, Cin, Cout) bf16 WIO; y (M = B*T_out, Cout)
 // bf16. Output rows are the flattened (b, t_out) pairs. Any Cin, K >= 1,
 // stride >= 1, T; Cout in {64, 128, 256, 512}. The Hadamard variant
-// (fused_fusion.cu) convolves x = v * q[b] instead, the product of each
-// row of v (B, T, Cin) with its own video's query q (B, Cin), rounded to
-// bf16 once and formed while A is staged, so it never reaches HBM.
+// (fused_fusion.cu, block_probe.cu) convolves x = v * q[b] instead, the
+// product of each row of v (B, T, Cin) with its own video's query q (B,
+// Cin), rounded to bf16 once and formed while A is staged, so it never
+// reaches HBM.
 //
 // Tiling. A block owns kBM = 64 output rows (one wgmma M) and every Cout
 // column of its share, because the output LayerNorm needs whole rows. Two
@@ -48,8 +49,8 @@
 // keeps kLag k-tiles of copies in flight, and when the oldest has landed
 // (cp.async.wait_group) it fences the slot to the async proxy, which wgmma
 // reads through, and arrives on its "full" mbarrier. The Hadamard
-// variant (stride 1, odd K <= kMaxK) loads a chunk's window of 64 + K - 1
-// rows of v once into registers (ld.global.nc, the next chunk's while
+// variant (stride 1, K <= kMaxK, any left) loads a chunk's window of 64 +
+// K - 1 rows of v once into registers (ld.global.nc, the next chunk's while
 // this one's tiles are stored), each row with its own video's 8 channels
 // of q, multiplies in fp32, packs to bf16 and stores the K tap-shifted A
 // tiles 16 bytes at a time, then fences and arrives; it never takes TMA
@@ -58,14 +59,16 @@
 // tile's four k16 wgmma, keep one group in flight, and release the
 // previous slot on its "empty" mbarrier.
 //
-// Epilogue from the accumulator registers: + bias, row sums and sums of
+// Epilogue from the accumulator registers: + bias (fp32, or bf16 widened
+// to fp32 in the probe's block, a compile-time variant), row sums and sums of
 // squares reduced across the 4 lanes that share a row, exchanged between
 // the warpgroups through shared memory (and every block of the cluster
 // over distributed shared memory when SPLIT > 1), flax LayerNorm (fast
-// variance clamped at 0, eps 1e-6), * scale + offset, ReLU; the bf16 tile
-// is staged in the (by then idle) ring and stored 16 bytes a thread, each
-// warp writing whole rows. Each of use_norm / use_act can be off (the
-// backward's recompute, the fusion backward's dx conv, the FPN laterals).
+// variance clamped at 0, eps 1e-6 unless the caller sets another), *
+// scale + offset, ReLU; the bf16 tile is staged in the (by then idle) ring
+// and stored 16 bytes a thread, each warp writing whole rows. Each of
+// use_norm / use_act can be off (the backward's recompute, the fusion
+// backward's dx conv, the FPN laterals).
 #pragma once
 
 #include "sm90.cuh"
@@ -129,12 +132,14 @@ struct ConvArgs {
   const __nv_bfloat16* x;        // (B, T, Cin): v for kHadamardA
   const __nv_bfloat16* q;        // (B, Cin), read by kHadamardA alone
   const __nv_bfloat16* w;        // (K, Cin, Cout)
-  const float* bias;             // (Cout)
+  const float* bias;             // (Cout), unless BF16_BIAS
+  const __nv_bfloat16* bias_bf16;  // (Cout), read instead where BF16_BIAS
   const float* scale;            // (Cout)
   const float* offset;           // (Cout)
   __nv_bfloat16* out;            // (M, Cout)
   int M, T, T_out, Cin, K, stride, left, use_norm, use_act;
   int nkc;                       // ceil(Cin / kBK): k-tiles per tap
+  float eps = kLnEps;            // LayerNorm epsilon; `ConvArgs a{}` keeps it
 };
 
 // 16 bytes global -> shared, asynchronously; `bytes` = 0 zero-fills them.
@@ -190,8 +195,9 @@ __device__ __forceinline__ uint4 hadamard(uint4 v, uint4 q) {
 // distributed shared memory): SPLIT times the blocks where the row tiles
 // alone leave SMs idle. A: where A comes from (ASource); kTmaA copies it
 // through `xmap` (K = 1, stride 1, Cin % 8 == 0), the others do not read
-// `xmap`.
-template <int NW, int SPLIT, int A>
+// `xmap`. BF16_BIAS: the bias is a.bias_bf16 (the probe's block), widened
+// to fp32; a runtime branch there slowed the package's Hadamard kernels.
+template <int NW, int SPLIT, int A, bool BF16_BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_ln_relu_kernel(const __grid_constant__ CUtensorMap wmap,
                         const __grid_constant__ CUtensorMap xmap,
@@ -261,7 +267,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int aj = tid & 7, ar = tid >> 3;
     const bool aligned = (a.Cin & 7) == 0;
     if (A == kHadamardA) {
-      // Stride 1, odd K, T_out = T. A chunk's window of kBM + K - 1 input
+      // Stride 1, K <= kMaxK, any left (SAME's (K - 1) / 2 or the
+      // probe's K / 2), T_out = T. A chunk's window of kBM + K - 1 input
       // rows (window row w = ar + 16 i is flattened input row m0 - left +
       // w, clamped to a valid row) is loaded and multiplied once, in
       // registers (channels 8 aj .. 8 aj + 7 of the chunk, each row times
@@ -433,8 +440,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
 #pragma unroll
     for (int n8 = 0; n8 < kN / 8; ++n8) {
-      const float2 bb =
-          __ldg(reinterpret_cast<const float2*>(a.bias + col0 + 8 * n8));
+      float2 bb;
+      if constexpr (BF16_BIAS) {
+        const uint32_t h = __ldg(reinterpret_cast<const unsigned int*>(
+            a.bias_bf16 + col0 + 8 * n8));
+        bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h));
+      } else {
+        bb = __ldg(reinterpret_cast<const float2*>(a.bias + col0 + 8 * n8));
+      }
       acc[4 * n8] += bb.x;
       acc[4 * n8 + 1] += bb.y;
       acc[4 * n8 + 2] += bb.x;
@@ -484,9 +497,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float inv_n = 1.0f / kCout;
       const float mean0 = s0 * inv_n, mean1 = s1 * inv_n;
       const float rstd0 =
-          rsqrtf(fmaxf(q0 * inv_n - mean0 * mean0, 0.f) + kLnEps);
+          rsqrtf(fmaxf(q0 * inv_n - mean0 * mean0, 0.f) + a.eps);
       const float rstd1 =
-          rsqrtf(fmaxf(q1 * inv_n - mean1 * mean1, 0.f) + kLnEps);
+          rsqrtf(fmaxf(q1 * inv_n - mean1 * mean1, 0.f) + a.eps);
 #pragma unroll
       for (int n8 = 0; n8 < kN / 8; ++n8) {
         const int c = col0 + 8 * n8;
@@ -536,14 +549,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int NW, int SPLIT, int A>
+template <int NW, int SPLIT, int A, bool BF16_BIAS>
 cudaError_t launch_kernel(const ConvArgs& a, int grid, cudaStream_t stream) {
   using G = Geometry<NW>;
   bind_context();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv_ln_relu_kernel<NW, SPLIT, A>,
+        conv_ln_relu_kernel<NW, SPLIT, A, BF16_BIAS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
     if (e != cudaSuccess) return e;
     configured = true;
@@ -569,42 +582,44 @@ cudaError_t launch_kernel(const ConvArgs& a, int grid, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = SPLIT > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, conv_ln_relu_kernel<NW, SPLIT, A>, wmap,
-                         xmap, a);
+  e = cudaLaunchKernelEx(&cfg, conv_ln_relu_kernel<NW, SPLIT, A, BF16_BIAS>,
+                         wmap, xmap, a);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// The Hadamard variant for fused_fusion.cu; otherwise A by TMA where
-// output row gm reads input row gm and rows are 16-byte aligned, by
-// cp.async where not.
-template <int NW, int SPLIT, bool H>
+// The Hadamard variant for fused_fusion.cu and block_probe.cu; otherwise
+// A by TMA where output row gm reads input row gm and rows are 16-byte
+// aligned, by cp.async where not.
+template <int NW, int SPLIT, bool H, bool B>
 cudaError_t launch_nw(const ConvArgs& a, int grid, cudaStream_t stream) {
+  static_assert(H || !B, "a bf16 bias only in the Hadamard variant");
   if constexpr (H)
-    return launch_kernel<NW, SPLIT, kHadamardA>(a, grid, stream);
+    return launch_kernel<NW, SPLIT, kHadamardA, B>(a, grid, stream);
   else
     return a.K == 1 && a.stride == 1 && (a.Cin & 7) == 0
-               ? launch_kernel<NW, SPLIT, kTmaA>(a, grid, stream)
-               : launch_kernel<NW, SPLIT, kGatherA>(a, grid, stream);
+               ? launch_kernel<NW, SPLIT, kTmaA, false>(a, grid, stream)
+               : launch_kernel<NW, SPLIT, kGatherA, false>(a, grid, stream);
 }
 
 // The caller's split and grid must be ones this source builds: a split of
 // Cout 512 over 2 or 4 blocks, else one block a tile; grid = split *
-// ceil(M / kBM). H: the Hadamard variant (x is v, convolved as v * q[b]).
-template <bool H>
+// ceil(M / kBM). H: the Hadamard variant (x is v, convolved as v * q[b]);
+// B: its bias is a.bias_bf16 (block_probe.cu).
+template <bool H, bool B = false>
 cudaError_t launch_conv(const ConvArgs& a, int cout, int split, int grid,
                         cudaStream_t stream) {
   if (grid != split * ((a.M + kBM - 1) / kBM) || grid <= 0)
     return cudaErrorInvalidValue;
   if (split == 2)
-    return cout == 512 ? launch_nw<4, 2, H>(a, grid, stream) : cudaErrorInvalidValue;
+    return cout == 512 ? launch_nw<4, 2, H, B>(a, grid, stream) : cudaErrorInvalidValue;
   if (split == 4)
-    return cout == 512 ? launch_nw<2, 4, H>(a, grid, stream) : cudaErrorInvalidValue;
+    return cout == 512 ? launch_nw<2, 4, H, B>(a, grid, stream) : cudaErrorInvalidValue;
   if (split != 1) return cudaErrorInvalidValue;
   switch (cout) {
-    case 64: return launch_nw<1, 1, H>(a, grid, stream);
-    case 128: return launch_nw<2, 1, H>(a, grid, stream);
-    case 256: return launch_nw<4, 1, H>(a, grid, stream);
-    case 512: return launch_nw<8, 1, H>(a, grid, stream);
+    case 64: return launch_nw<1, 1, H, B>(a, grid, stream);
+    case 128: return launch_nw<2, 1, H, B>(a, grid, stream);
+    case 256: return launch_nw<4, 1, H, B>(a, grid, stream);
+    case 512: return launch_nw<8, 1, H, B>(a, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }

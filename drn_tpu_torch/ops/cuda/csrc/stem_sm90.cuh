@@ -52,7 +52,7 @@
 #include "sm90.cuh"
 
 namespace drn {
-// Internal linkage, as in conv_gemm.cuh: each source is its own library,
+// Internal linkage, as in conv_sm90.cuh: each source is its own library,
 // and a function-local "configured" flag must be one per library.
 namespace {
 

@@ -1,7 +1,8 @@
 """The launch geometry of csrc/conv_sm90.cuh's kernels
-(`drn_tpu_torch.ops.cuda.conv_block.conv_plan`: conv_ln_relu and the
-fusion kernels) at every conv site and fusion level of every configuration
-of the port's registry, at its eval and its train batch, on the CPU.
+(`drn_tpu_torch.ops.cuda.conv_block.conv_plan`: conv_ln_relu, the fusion
+kernels and the probe's block) at every conv site and fusion level of
+every configuration of the port's registry, at its eval and its train
+batch, and at the probe's shapes, on the CPU.
 
 Python decides only what the C source cannot see, the split of a row
 tile's columns over a cluster (from the card's SM count), and hence the
@@ -26,13 +27,15 @@ from drn_tpu_torch.ops.cuda.conv_block import (CONV_SPLITS, TILE_ROWS,
                                                conv_plan, same_padding)
 
 H100_SMS = 132
-SOURCE = (Path(conv_block.__file__).parent / "csrc"
-          / "conv_sm90.cuh").read_text()
+CSRC = Path(conv_block.__file__).parent / "csrc"
+SOURCE = (CSRC / "conv_sm90.cuh").read_text()
 # (Cout, split) of each kernel the source launches: launch_nw<NW, SPLIT,
-# H> computes 64 * NW of the 64 * NW * SPLIT columns of a row tile, for the
-# conv block (H false) and the fusion kernels (H true) alike.
+# H, B> computes 64 * NW of the 64 * NW * SPLIT columns of a row tile, for
+# the conv block (H false), the fusion kernels (H true) and the probe's
+# block (H and B true) alike.
 BUILT = {(64 * int(nw) * int(sp), int(sp))
-         for nw, sp in re.findall(r"launch_nw<(\d+), (\d+), H>\(a", SOURCE)}
+         for nw, sp in re.findall(r"launch_nw<(\d+), (\d+), H, B>\(a",
+                                  SOURCE)}
 CASES = [(name, which) for name in list_configs() for which in ("eval", "train")]
 
 
@@ -152,6 +155,94 @@ def test_fusion_max_k_is_the_sources():
         r"^constexpr int (kBM|kWinUnits) = (\d+);", SOURCE, re.M)}
     assert "constexpr int kMaxK = 16 * kWinUnits - kBM + 1;" in SOURCE
     assert fused_fusion.MAX_K == 16 * c["kWinUnits"] - c["kBM"] + 1 == 17
+
+
+@pytest.mark.parametrize("b,want", [(256, (1, 256)), (32, (4, 128))])
+def test_probe_plan(b, want):
+    """The probe's block at its shapes (B=256, T=64, D=512: 256 row tiles,
+    one block each) and at chip_smoke's even-K check (B=32: 32 tiles split
+    over a 4-block cluster) on an H100."""
+    from drn_tpu_torch.ops.cuda import block_probe
+    from drn_tpu_torch.probes import pallas_block_probe as probe
+
+    assert block_probe.conv_plan is conv_plan
+    assert (probe.T, probe.D) == (64, 512)
+    assert tuple(conv_plan(b * probe.T, probe.D, H100_SMS)) == want
+
+
+def test_pallas_block_max_k_is_the_sources():
+    """The probe's wrapper refuses K past the Hadamard producer's window,
+    as the fusion wrappers do, and the entry point past kMaxK."""
+    from drn_tpu_torch.ops.cuda import block_probe
+
+    c = {n: int(v) for n, v in re.findall(
+        r"^constexpr int (kBM|kWinUnits) = (\d+);", SOURCE, re.M)}
+    assert block_probe.MAX_K == 16 * c["kWinUnits"] - c["kBM"] + 1
+    entry = (CSRC / "block_probe.cu").read_text()
+    assert "K > drn::kMaxK) return" in entry
+
+
+def test_pallas_block_raises_past_max_k_before_the_launch():
+    """A tensor off the CPU with K = MAX_K + 1 is refused by the wrapper
+    before it looks for a card (meta tensors: no device needed)."""
+    from drn_tpu_torch.ops.cuda import block_probe
+
+    k = block_probe.MAX_K + 1
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    args = (torch.empty(2, 16, 64, **meta), torch.empty(2, 64, **meta),
+            torch.empty(k, 64, 64, **meta), torch.empty(64, **meta),
+            torch.empty(64, device="meta"), torch.empty(64, device="meta"))
+    with pytest.raises(ValueError, match=f"K={k}"):
+        block_probe.pallas_block(*args)
+
+
+def test_pallas_block_is_the_hadamard_variant():
+    """block_probe.cu launches conv_sm90.cuh's Hadamard variant compiled
+    for a bf16 bias (the package's fusion kernels without it), with the
+    probe's K // 2 left padding, its bias and eps; conv_gemm.cuh, the first
+    slice's template, is gone and no source includes it."""
+    entry = (CSRC / "block_probe.cu").read_text()
+    assert '#include "conv_sm90.cuh"' in entry
+    assert "drn::launch_conv<true, true>(" in entry
+    assert "drn::launch_conv<true>(" in (CSRC / "fused_fusion.cu").read_text()
+    for field in ("a.left = K / 2;", "a.bias_bf16 =", "a.eps = eps;"):
+        assert field in entry
+    assert not (CSRC / "conv_gemm.cuh").exists()
+    for src in CSRC.glob("*.cu*"):
+        assert "conv_gemm" not in src.read_text(), src.name
+
+
+def test_conv_args_eps_defaults_to_the_package_kernels_eps():
+    """`ConvArgs a{}` in conv_block.cu and fused_fusion.cu keeps flax's
+    1e-6 (sm90.cuh's kLnEps) without setting eps, and the epilogue reads
+    the field, not the constant."""
+    sm90 = (CSRC / "sm90.cuh").read_text()
+    assert re.search(r"^constexpr float kLnEps = 1e-6f;", sm90, re.M)
+    args = re.search(r"struct ConvArgs \{(.*?)\};", SOURCE, re.S).group(1)
+    assert re.search(r"^  float eps = kLnEps;", args, re.M)
+    assert SOURCE.count("+ a.eps)") == 2 and "+ kLnEps)" not in SOURCE
+    for name in ("conv_block.cu", "fused_fusion.cu"):
+        text = (CSRC / name).read_text()
+        assert "drn::ConvArgs a{};" in text and "a.eps" not in text
+
+
+@pytest.mark.parametrize("source,symbol,module", [
+    ("block_probe", "drn_pallas_block", "block_probe"),
+    ("conv_block", "drn_conv_ln_relu", "conv_block"),
+    ("stem", "drn_fused_stem", "stem")])
+def test_entry_signatures_match_their_wrappers(source, symbol, module):
+    """Each wrapper's ctypes declaration (`_build.entry`: pointers, ints,
+    floats, then the stream) is the C entry point's parameter list."""
+    wrapper = (CSRC.parent / f"{module}.py").read_text()
+    n = re.search(rf'_build\.entry\("{source}", "{symbol}", (\d+), (\d+)'
+                  r"(?:, (\d+))?\)", wrapper).groups()
+    n_ptr, n_int, n_float = int(n[0]), int(n[1]), int(n[2] or 0)
+    params = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*\{{',
+                       (CSRC / f"{source}.cu").read_text(), re.S).group(1)
+    kinds = ["ptr" if "*" in p else p.split()[0] for p in params.split(",")]
+    assert kinds == (["ptr"] * n_ptr + ["int"] * n_int
+                     + ["float"] * n_float + ["ptr"])
+    assert params.split(",")[-1].split()[-1] == "stream"
 
 
 def test_conv_plan_refuses_a_width_it_does_not_build():

@@ -278,7 +278,19 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                 :1 + len(epi)])
         with pytest.raises(TypeError):                   # fp32 v
             fusion(x.float(), q, w, b, *epi)
-    # A split or grid the source does not build: the entry point refuses.
+    from drn_tpu_torch.ops.cuda import pallas_block
+    bb = b.bfloat16()
+    with pytest.raises(ValueError):                      # K past MAX_K
+        pallas_block(x, q, _randn(dev, 18, 64, 64), bb, s, o)
+    with pytest.raises(ValueError):                      # Cout not built
+        pallas_block(x, q, _randn(dev, 3, 64, 96), _randn(dev, 96),
+                     *_epilogue(dev, 96)[1:])
+    with pytest.raises(TypeError):                       # fp32 v
+        pallas_block(x.float(), q, w, bb, s, o)
+    with pytest.raises(TypeError):                       # fp32 bias
+        pallas_block(x, q, w, b, s, o)
+    # A split or grid the source does not build, or K past kMaxK: the entry
+    # point refuses.
     from drn_tpu_torch.ops.cuda import _build
     from drn_tpu_torch.ops.cuda.conv_block import stream_of
     out = torch.empty_like(x)
@@ -287,6 +299,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     assert fn(*ptrs, 2, 16, 64, 64, 3, 1, 1, stream_of(x)) == 0  # the plan
     for split, grid in ((2, 2), (1, 2), (3, 3), (4, 4)):  # 64 columns: 1
         assert fn(*ptrs, 2, 16, 64, 64, 3, split, grid, stream_of(x)) != 0
+    fn = _build.entry("block_probe", "drn_pallas_block", 7, 7, 1)
+    ptrs = [t.data_ptr() for t in (x, q, w, bb, s, o, out)]
+    assert fn(*ptrs, 2, 16, 64, 64, 3, 1, 1, 1e-6, stream_of(x)) == 0
+    for k, split, grid in ((3, 2, 2), (3, 1, 2), (3, 3, 3), (3, 4, 4),
+                           (18, 1, 1)):
+        assert fn(*ptrs, 2, 16, 64, 64, k, split, grid, 1e-6,
+                  stream_of(x)) != 0
     torch.cuda.synchronize()
 
 
@@ -411,18 +430,35 @@ def test_train_step_kernels_vs_plain(dev):
     assert set(grads[0]) == set(grads[1])
 
 
-@pytest.mark.parametrize("b,t,k", [(32, 64, 3), (8, 21, 3), (16, 64, 4),
-                                   (8, 21, 2)])
-def test_pallas_block_kernel(dev, b, t, k):
+# The probe's block (conv_sm90.cuh's Hadamard variant) at its first four
+# cases (D 512, Dout 512), then every width it instantiates x K 1 to 5 (odd
+# and even: K // 2 rows of left padding) x T 64, 21 (tiles across videos)
+# and 16 (a tile spans 5 videos) at D 512, and D 500 (rows not 16-byte
+# aligned) at K 3 and 4.
+PALLAS_BLOCK_CASES = [
+    pytest.param(b, t, 512, 512, k, id=f"{b}-{t}-{k}")
+    for b, t, k in ((32, 64, 3), (8, 21, 3), (16, 64, 4), (8, 21, 2))] + [
+    pytest.param(6, t, d, dout, k, id=f"6-{t}-{k}-d{d}-dout{dout}")
+    for d, dout, ks in [(512, dout, (1, 2, 3, 4, 5)) for dout in
+                        (64, 128, 256, 512)] + [(500, 512, (3, 4))]
+    for k in ks for t in (64, 21, 16)]
+
+
+def _pallas_block_args(dev, b, t, d, dout, k):
+    v, q = _randn(dev, b, t, d), _randn(dev, b, d, seed=5)
+    w = _randn(dev, k, d, dout, scale=0.05, seed=6)
+    bias = _randn(dev, dout, scale=0.1, seed=1)
+    _, scale, offset = _epilogue(dev, dout)
+    return v, q, w, bias, scale, offset
+
+
+@pytest.mark.parametrize("b,t,d,dout,k", PALLAS_BLOCK_CASES)
+def test_pallas_block_kernel(dev, b, t, d, dout, k):
     """The probe's block: bf16 bias, its own eps, K // 2 rows of left
     padding for odd and even K."""
     from drn_tpu_torch.ops.cuda import pallas_block, pallas_block_reference
 
-    d = 512
-    v, q = _randn(dev, b, t, d), _randn(dev, b, d, seed=5)
-    w = _randn(dev, k, d, d, scale=0.05, seed=6)
-    bias = _randn(dev, d, scale=0.1, seed=1)
-    _, scale, offset = _epilogue(dev, d)
+    v, q, w, bias, scale, offset = _pallas_block_args(dev, b, t, d, dout, k)
     for eps in (1e-6, 1e-3):
         before = launch_counts()["pallas_block"]
         got = pallas_block(v, q, w, bias, scale, offset, eps)
@@ -431,6 +467,23 @@ def test_pallas_block_kernel(dev, b, t, k):
         torch.testing.assert_close(
             got.float(), pallas_block_reference(v, q, w, bias, scale, offset,
                                                 eps).float(), **TOL)
+
+
+@pytest.mark.parametrize("split,part,more", [(4, 4, 0), (2, 4, 1), (2, 2, 0),
+                                             (1, 2, 1)])
+def test_pallas_block_kernel_at_the_split_boundaries(dev, split, part, more):
+    """Dout 512 at the most row tiles still split over a 4-block cluster
+    (33 on an H100), over a 2-block one (66), and one tile more than each:
+    the LayerNorm's row sums cross the cluster, at an even K."""
+    from drn_tpu_torch.ops.cuda import pallas_block, pallas_block_reference
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b = sms // part + more  # one 64-row tile a video
+    assert conv_plan(b * 64, 512, sms).split == split
+    args = _pallas_block_args(dev, b, 64, 128, 512, 4)
+    torch.testing.assert_close(pallas_block(*args, 1e-3).float(),
+                               pallas_block_reference(*args, 1e-3).float(),
+                               **TOL)
 
 
 def test_flops_equal_through_kernels_and_plain_versions(dev):

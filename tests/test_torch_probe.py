@@ -65,6 +65,8 @@ def _close(got, want, atol, rtol):
     (16, 13, 2, 8, 1e-6),    # even K: K // 2 rows of left padding
     (16, 16, 4, 16, 1e-3),   # even K, a non-default eps
     (16, 13, 3, 8, 1e-3),    # ragged T, a non-default eps
+    (16, 16, 1, 8, 1e-6),    # K = 1: no padding
+    (16, 13, 5, 16, 1e-3),   # K = 5: two rows on each side
 ])
 def test_pallas_block_matches_the_jax_probe(dtype, b, t, k, bb, eps):
     atol, rtol = DTYPES[dtype][2:]
