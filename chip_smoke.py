@@ -45,6 +45,24 @@ non-zero exit code:
               library yardstick (cuDNN conv + layer_norm + ReLU), its grid
               (`blocks`), cluster `split` and achieved `tflops`; then the
               kernel against its plain version at K=3 and at K=4 (B=32).
+  6. dataset  the real-dataset path on a Charades-STA corpus written from a
+              seed into a temporary directory (128 videos of 1 to 200 rows
+              at F=4096, some float16, one of exactly 64 rows; 3 queries
+              each: 384 train examples, the first 40 videos' 120 the test
+              split; a 300-d GloVe file that lacks a few corpus words);
+              the native reader built by g++ (timed, before the runs);
+              `evaluate` at the flagship width streamed through the
+              FeatureReader and with device_features=True, equal metrics
+              and the `main` launch counts for each; the native reader
+              serving every .npy; the first batch against NumPy's
+              resample of np.load, and the staged gather on the card
+              against it. Then `train` in GloVe mode with
+              device_features=True at data.batch_size=384 for 2 stage-1
+              steps (finite losses, the embedding bit-identical, every
+              other parameter outside the IoU head moved, `fused_fusion`
+              launched), the staged train step's time, and `infer.main` on
+              one written video with the eval model's weights (--top
+              segments per query inside [0, duration]).
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -58,11 +76,16 @@ non-zero and prints no result. It imports nothing of JAX nor of `drn_tpu`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -99,6 +122,20 @@ CONFIG = "charades_c3d_batched_eval"
 EXAMPLES = 120  # 48 + 48 + 24: three eval steps, the last one padded
 TRAIN_BATCH = 384  # the config's data.batch_size, its training batch
 TRAIN_STEPS = 5
+
+# The dataset phase's corpus: Charades-STA format, C3D width.
+DS_VIDEOS, DS_QUERIES, DS_TEST_VIDEOS = 128, 3, 40
+DS_FPS = 2.0  # feature rows per second of video
+DS_FLOAT16 = (2, 5, 11)  # videos stored as float16 (all in the first batch)
+DS_WORDS = (
+    "person opens closes the a door window cabinet refrigerator drawer box "
+    "laptop phone book bag towel shoes clothes dishes food sandwich cup "
+    "glass bottle table chair bed sofa floor mirror light picture pillow "
+    "blanket broom vacuum camera paper homework takes puts holds sits "
+    "stands walks runs laughs smiles sneezes eats drinks pours washes "
+    "dresses undresses watches reads writes tidies throws into on off "
+    "from at their his her then").split()
+DS_NOT_IN_GLOVE = {"sneezes", "undresses", "tidies", "vacuum"}  # → UNK
 
 
 def emit(obj) -> None:
@@ -274,6 +311,26 @@ def kernel_phase(cfg, dev):
     return totals, rows
 
 
+def eval_launches_per_step(m):
+    """Kernel launches of one eval step: the stem, one fusion block a
+    level, 3 conv blocks a level (backbone, lateral, smooth), the two head
+    towers and the IoU head's mixes."""
+    return {"fused_stem": 1, "fused_fusion_block": m.num_levels,
+            "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
+            + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0}
+
+
+def train_launches_per_step(m):
+    """Forward 1 / L / (3L + 2·towers + IoU mixes); the backward recomputes
+    every pre-LayerNorm conv with the kernels (stem, `fused_fusion` for
+    each fusion level, each conv block) and runs each fusion level's dx
+    conv through `conv_ln_relu`."""
+    blocks = 3 * m.num_levels + 2 * m.head_tower_layers + m.iou_head_layers
+    return {"fused_stem": 2, "fused_fusion_block": m.num_levels,
+            "conv_ln_relu": 2 * blocks + m.num_levels,
+            "fused_fusion": m.num_levels, "pallas_block": 0}
+
+
 def main_path_phase(cfg, dev):
     """evaluate() through the kernels, with the launch counts of that run;
     the same forward through the plain versions; the step's queries/s."""
@@ -293,10 +350,7 @@ def main_path_phase(cfg, dev):
     setup_s = time.perf_counter() - t0
 
     steps = -(-len(dataset) // cfg.eval.batch_size)
-    m = cfg.model
-    per_step = {"fused_stem": 1, "fused_fusion_block": m.num_levels,
-                "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
-                + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0}
+    per_step = eval_launches_per_step(cfg.model)
     reset_launch_counts()
     t0 = time.perf_counter()
     metrics = evaluate(cfg, model, dataset, device=dev)
@@ -376,15 +430,7 @@ def train_phase(cfg, dev):
     step = make_train_step(cfg, model, make_optimizer(cfg, 1, model))
     setup_s = time.perf_counter() - t0
 
-    # Forward 1 / L / (3L + 2·towers + IoU mixes); the backward recomputes
-    # every pre-LayerNorm conv with the kernels (stem, `fused_fusion` for
-    # each fusion level, each conv block) and runs each fusion level's dx
-    # conv through `conv_ln_relu`.
-    m = cfg.model
-    blocks = 3 * m.num_levels + 2 * m.head_tower_layers + m.iou_head_layers
-    per_step = {"fused_stem": 2, "fused_fusion_block": m.num_levels,
-                "conv_ln_relu": 2 * blocks + m.num_levels,
-                "fused_fusion": m.num_levels, "pallas_block": 0}
+    per_step = train_launches_per_step(cfg.model)
     reset_launch_counts()
     losses = [step(batch)["loss"].item() for _ in range(TRAIN_STEPS)]
     launches = launch_counts()
@@ -502,6 +548,265 @@ def probe_phase(dev):
         device=res["device"])
 
 
+def write_corpus(root, fdim):
+    """The dataset phase's Charades-STA corpus under `root`, from a seeded
+    generator: one `{video}.npy` a video (1 to 200 rows; video 0 exactly
+    the 64-row grid, video 1 one row, DS_FLOAT16 in float16), the
+    `charades_sta_{train,test}.txt` annotations (start and end in seconds
+    inside rows / DS_FPS) and a 300-d `glove.txt` of every corpus word but
+    DS_NOT_IN_GLOVE, plus words the corpus lacks. Returns the DataConfig
+    fields that point at it."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    fd = os.path.join(root, "features")
+    os.mkdir(fd)
+    lines = []
+    for v in range(DS_VIDEOS):
+        t = 64 if v == 0 else 1 if v == 1 else int(rng.integers(1, 201))
+        feats = rng.standard_normal((t, fdim), dtype=np.float32)
+        np.save(os.path.join(fd, f"V{v:04d}.npy"),
+                feats.astype(np.float16) if v in DS_FLOAT16 else feats)
+        dur = t / DS_FPS
+        for _ in range(DS_QUERIES):
+            start = float(rng.uniform(0.0, 0.8 * dur))
+            end = min(dur, start + float(rng.uniform(0.1, 0.5)) * dur + 0.25)
+            words = rng.choice(DS_WORDS, int(rng.integers(4, 11)))
+            lines.append(f"V{v:04d} {start:.1f} {end:.1f}##"
+                         f"{' '.join(words).capitalize()}.\n")
+    with open(os.path.join(root, "charades_sta_train.txt"), "w") as f:
+        f.writelines(lines)
+    with open(os.path.join(root, "charades_sta_test.txt"), "w") as f:
+        f.writelines(lines[:DS_TEST_VIDEOS * DS_QUERIES])
+    with open(os.path.join(root, "glove.txt"), "w") as f:
+        for w in sorted(set(DS_WORDS) - DS_NOT_IN_GLOVE) + [
+                "unused", "extra", "words"]:
+            vec = rng.standard_normal(300).astype(np.float32) * 0.4
+            f.write(w + " " + " ".join(f"{x:.5f}" for x in vec) + "\n")
+    return dict(dataset="charades", feature_dir=fd, feature_fps=DS_FPS,
+                annotation_path=os.path.join(root, "charades_sta_{split}.txt"),
+                glove_path=os.path.join(root, "glove.txt"))
+
+
+class _Tee(io.TextIOBase):
+    """Writes through to `out` and keeps what it wrote."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def dataset_phase(base, dev):
+    """The real-dataset path: evaluate streamed and staged, GloVe-mode
+    train with a staged table, infer; see the module's docstring."""
+    import numpy as np
+    import torch
+
+    from drn_tpu_torch import infer, native
+    from drn_tpu_torch.data.features import resample_features
+    from drn_tpu_torch.data.pipeline import (BatchIterator, build_vocab,
+                                             make_dataset)
+    from drn_tpu_torch.data.vocab import UNK_ID, tokenize
+    from drn_tpu_torch.evaluate import (batch_features, build_model, evaluate,
+                                        stage_on_device, to_device)
+    from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from drn_tpu_torch.train import make_optimizer, make_train_step, train
+    from drn_tpu_torch.utils.profiling import host_ms
+
+    with tempfile.TemporaryDirectory(prefix="drn_corpus_") as root:
+        t0 = time.perf_counter()
+        fields = write_corpus(root, base.model.feature_dim)
+        corpus_s = time.perf_counter() - t0
+        corpus_bytes = sum(e.stat().st_size for e in
+                           os.scandir(fields["feature_dir"]))
+        # The native reader's g++ build, before the timed runs.
+        t0 = time.perf_counter()
+        if native.load() is None:
+            raise AssertionError("the native feature reader did not build")
+        native_build_s = time.perf_counter() - t0
+        hashed = {k: v for k, v in fields.items() if k != "glove_path"}
+        cfg = base.replace(data=dataclasses.replace(base.data, **hashed))
+
+        # evaluate(), streamed through the FeatureReader, then staged.
+        model = build_model(cfg, device=dev, seed=0)
+        steps = -(-DS_TEST_VIDEOS * DS_QUERIES // cfg.eval.batch_size)
+        want = {k: n * steps for k, n in
+                eval_launches_per_step(cfg.model).items()}
+        runs = {}
+        for staged in (False, True):
+            ds = make_dataset(cfg.data, cfg.model, split="test")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = evaluate(cfg, model, ds, device=dev,
+                               device_features=staged)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = launch_counts()
+            if launches != want:
+                raise AssertionError(f"dataset eval (staged={staged}) launch "
+                                     f"counts {launches}, expected {want}")
+            r = ds.reader
+            if r.native_reads != r.cache_misses or r.native_reads != \
+                    DS_TEST_VIDEOS:
+                raise AssertionError(
+                    f"native reads {r.native_reads} of {r.cache_misses} "
+                    f"uncached reads, {DS_TEST_VIDEOS} videos")
+            runs["staged" if staged else "streamed"] = dict(
+                ds=ds, metrics=metrics, s=sec, launches=launches,
+                cache_hits=r.cache_hits, cache_misses=r.cache_misses,
+                native_reads=r.native_reads)
+        if runs["streamed"]["metrics"] != runs["staged"]["metrics"]:
+            raise AssertionError(f"streamed {runs['streamed']['metrics']} vs "
+                                 f"staged {runs['staged']['metrics']}")
+        if not all(math.isfinite(v) for v in
+                   runs["streamed"]["metrics"].values()):
+            raise AssertionError("non-finite dataset metrics")
+
+        # The first batch: the reader against NumPy, the staged gather on
+        # the card against the reader.
+        ds = runs["streamed"]["ds"]
+        first = next(BatchIterator(ds, cfg.eval.batch_size,
+                                   shuffle=False).epoch(0))
+        read_err = {"float32": 0.0, "float16": 0.0}
+        for i in range(cfg.eval.batch_size):
+            vid = ds.examples[i].video_id
+            raw = np.load(os.path.join(fields["feature_dir"], f"{vid}.npy"))
+            err = float(np.abs(first["features"][i] - resample_features(
+                raw, cfg.data.num_clips)).max())
+            key = raw.dtype.name
+            read_err[key] = max(read_err[key], err)
+        if read_err["float32"] > 1e-6 or read_err["float16"] > 1e-3:
+            raise AssertionError(f"first batch vs NumPy: {read_err}")
+        table, view = stage_on_device(runs["staged"]["ds"], dev)
+        light = next(BatchIterator(view, cfg.eval.batch_size,
+                                   shuffle=False).epoch(0))
+        gathered = batch_features(to_device(light, dev), table)
+        if not torch.equal(gathered.cpu(),
+                           torch.from_numpy(first["features"])):
+            raise AssertionError("staged gather != streamed first batch")
+        eval_table_bytes = table.numel() * table.element_size()
+        del table, gathered
+
+        # train(): GloVe mode, staged, B=384, two stage-1 steps.
+        tcfg = base.replace(
+            data=dataclasses.replace(base.data, **fields,
+                                     batch_size=TRAIN_BATCH),
+            train=dataclasses.replace(
+                base.train, checkpoint_dir=os.path.join(root, "ckpt"),
+                eval_every_epochs=0, log_every_steps=1))
+        vocab = build_vocab(tcfg.data, tcfg.model)
+        unk = sum(vocab.lookup(w) == UNK_ID for ex in make_dataset(
+            tcfg.data, tcfg.model, vocab, split="train").examples
+                  for w in tokenize(ex.sentence))
+        init = build_model(tcfg, device="cpu", seed=tcfg.train.seed,
+                           pretrained_embeddings=vocab.embeddings
+                           ).state_dict()
+        tee = _Tee(sys.stderr)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(tee):
+            tmodel = train(tcfg, device=dev, max_steps=2,
+                           device_features=True)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = launch_counts()
+        want = {k: 2 * n for k, n in
+                train_launches_per_step(tcfg.model).items()}
+        if train_launches != want:
+            raise AssertionError(f"dataset train launch counts "
+                                 f"{train_launches}, expected {want}")
+        losses = [rec["loss"] for rec in map(json.loads, (
+            ln for ln in "".join(tee.text).splitlines() if ln.startswith("{")))
+                  if rec.get("tag", "").startswith("train/") and "loss" in rec]
+        if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"dataset train losses {losses}")
+        sd = tmodel.state_dict()
+        if not torch.equal(sd["embed.weight"].cpu(),
+                           torch.from_numpy(vocab.embeddings)):
+            raise AssertionError("GloVe embedding moved")
+        # The stage-1 loss weighs the IoU head's term by 0: its gradient
+        # is 0 and Adam leaves it; the LSTMs' second biases are constants.
+        still = sorted(k for k, v in sd.items()
+                       if torch.equal(v.cpu(), init[k]) and k != "embed.weight"
+                       and tmodel.owner(k) != "iou_head"
+                       and not k.endswith(".bias_hh_l0"))
+        if still:
+            raise AssertionError(f"trained parameters that did not move: "
+                                 f"{still[:5]}")
+
+        # The staged train step's time on one staged batch.
+        tds = make_dataset(tcfg.data, tcfg.model, vocab, split="train")
+        ttable, tview = stage_on_device(tds, dev)
+        if tds.reader.native_reads != DS_VIDEOS:
+            raise AssertionError(f"train staging: {tds.reader.native_reads} "
+                                 f"native reads of {DS_VIDEOS} videos")
+        tbatch = to_device(next(BatchIterator(tview, TRAIN_BATCH,
+                                              shuffle=False).epoch(0)), dev)
+        step = make_train_step(tcfg, tmodel, make_optimizer(tcfg, 1, tmodel))
+        train_step_ms = host_ms(lambda: step(tbatch, ttable), 3)
+        train_table_bytes = ttable.numel() * ttable.element_size()
+        del ttable, tmodel, step
+
+        # infer.main on one written video with the eval model's weights.
+        ckpt = os.path.join(root, "eval_model.pth")
+        torch.save({"model": model.state_dict()}, ckpt)
+        vid, top = "V0007", 5
+        rows = np.load(os.path.join(fields["feature_dir"], f"{vid}.npy"),
+                       mmap_mode="r").shape[0]
+        queries = ["A person opens the door then sits on the chair.",
+                   "Someone takes a cup from the table."]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            infer.main(["--config", base.name, "--torch-checkpoint", ckpt,
+                        "--features", os.path.join(fields["feature_dir"],
+                                                   f"{vid}.npy"),
+                        "--feature-fps", str(DS_FPS), "--top", str(top),
+                        "--device", str(dev)]
+                       + [a for q in queries for a in ("--query", q)])
+        segs = [(float(a), float(b)) for a, b in re.findall(
+            r"\[\s*([-\d.]+)s,\s*([-\d.]+)s\]", out.getvalue())]
+        dur = rows / DS_FPS
+        if len(segs) != top * len(queries) or not all(
+                0.0 <= a <= b <= dur + 0.005 for a, b in segs):
+            raise AssertionError(f"infer output over [0, {dur}]:\n"
+                                 f"{out.getvalue()}")
+
+    n_test = DS_TEST_VIDEOS * DS_QUERIES
+    st, sg = runs["streamed"], runs["staged"]
+    return dict(
+        phase="dataset", config=base.name, dataset="charades",
+        corpus=dict(videos=DS_VIDEOS, train_examples=DS_VIDEOS * DS_QUERIES,
+                    test_videos=DS_TEST_VIDEOS, test_examples=n_test,
+                    feature_bytes=corpus_bytes, write_s=corpus_s,
+                    float16_files=len(DS_FLOAT16), glove_rows=vocab.size,
+                    unk_tokens=unk),
+        native_build_s=native_build_s,
+        eval_steps=steps, batch_size=cfg.eval.batch_size,
+        launches_per_step={k: n // steps for k, n in st["launches"].items()},
+        metrics=st["metrics"], metrics_equal=True,
+        streamed_s=st["s"], streamed_qps=n_test / st["s"],
+        staged_s=sg["s"], staged_qps=n_test / sg["s"],
+        eval_table_bytes=eval_table_bytes,
+        reader={k: {f: r[f] for f in ("cache_hits", "cache_misses",
+                                      "native_reads")}
+                for k, r in runs.items()},
+        first_batch_max_err_vs_numpy=read_err,
+        train=dict(batch_size=TRAIN_BATCH, steps=2, losses=losses,
+                   launches=train_launches, train_s=train_s,
+                   step_ms=train_step_ms, table_bytes=train_table_bytes,
+                   native_reads=tds.reader.native_reads,
+                   embedding_unchanged=True),
+        infer=dict(video=vid, duration_s=dur, queries=len(queries), top=top,
+                   segments=segs[:top]),
+        device=torch.cuda.get_device_name(0))
+
+
 def main() -> int:
     import torch
 
@@ -538,6 +843,7 @@ def main() -> int:
     emit(train_line)
     probe_launches, probe_line = probe_phase(dev)
     emit(probe_line)
+    emit(dataset_phase(base, dev))
     # Each kernel's launches on its main path: the eval step's kernels in
     # the `main` run, `fused_fusion` (backward only) in the `train` run,
     # `pallas_block` in the `probe` run.

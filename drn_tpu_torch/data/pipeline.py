@@ -1,26 +1,46 @@
-"""Host batching (own copies of `BatchIterator` and `_pad_batch_rows` from
+"""The run's vocabulary, datasets and host batching (own copies of
+`build_vocab`, `make_dataset`, `BatchIterator` and `_pad_batch_rows` from
 drn_tpu/data/pipeline.py): fixed-size batches, the ragged last one padded
 and masked via `valid`. Padded rows keep query_mask[:, 0] = True (LSTM
-lengths >= 1) and gt_grid = [0, 1]."""
+lengths >= 1) and gt_grid = [0, 1]. Batches are built in process: worker
+processes (`data.num_workers > 0`) are refused by the entry points."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
 from drn_tpu_torch.config import DataConfig, ModelConfig
-from drn_tpu_torch.data.synthetic import SyntheticDataset
+from drn_tpu_torch.data.datasets import load_dataset, parse_examples
+from drn_tpu_torch.data.vocab import Vocab, tokenize
 
 
-def make_dataset(cfg: DataConfig, mcfg: ModelConfig, split: str = "train"):
-    """The port reads the synthetic fixture only, so far."""
-    if cfg.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r}: the port's readers of real datasets "
-            "(Charades-STA, ActivityNet, TACoS) are queued in ROADMAP.md; "
-            "use dataset='synthetic'")
-    return SyntheticDataset(cfg, mcfg, split=split)
+def build_vocab(cfg: DataConfig, mcfg: ModelConfig) -> Vocab:
+    """The run's one vocabulary, shared by every split and the model:
+    hashed without a GloVe file; with one, the GloVe table filtered to the
+    words of every split's annotations, so train and eval ids agree. Its
+    `embeddings` go to `build_model`, so the table and the ids match."""
+    if not cfg.glove_path:
+        return Vocab.hashed(mcfg.vocab_size)
+    if cfg.dataset == "synthetic":
+        return Vocab.from_glove(cfg.glove_path, mcfg.embed_dim)
+    words = set()
+    for split in ("train", "test", "val"):
+        try:
+            for ex in parse_examples(cfg, split):
+                words.update(tokenize(ex.sentence, cfg.lowercase))
+        except (FileNotFoundError, KeyError, ValueError):
+            continue
+    return Vocab.from_glove(cfg.glove_path, mcfg.embed_dim,
+                            filter_words=words or None)
+
+
+def make_dataset(cfg: DataConfig, mcfg: ModelConfig,
+                 vocab: Optional[Vocab] = None, split: str = "train"):
+    if vocab is None:
+        vocab = build_vocab(cfg, mcfg)
+    return load_dataset(cfg, mcfg, vocab, split)
 
 
 def _pad_batch_rows(batch: Dict[str, np.ndarray], batch_size: int

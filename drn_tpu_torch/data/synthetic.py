@@ -9,8 +9,7 @@ from typing import Dict
 import numpy as np
 
 from drn_tpu_torch.config import DataConfig, ModelConfig
-
-PAD_ID = 0  # as drn_tpu/data/vocab.py
+from drn_tpu_torch.data.vocab import PAD_ID
 
 
 class SyntheticDataset:

@@ -6,15 +6,19 @@ Entry points (`build_model`, `evaluate`, `predict`, `main`) run on `cuda`
 unless the caller passes `device="cpu"`; with no CUDA device and none
 asked for they raise instead of running on the CPU.
 
-Out of scope in this slice, and refused rather than ignored: Orbax
-checkpoints (`--checkpoint-dir`), multi-process runs, a device mesh,
-device-resident feature staging, worker processes for IO, and the readers
-of real datasets (ROADMAP.md queues each).
+`evaluate(..., device_features=True)` stages each unique video's grid in
+one table on the evaluation's device (data/staging.py) and the step
+gathers its batch from it.
+
+Out of scope, and refused rather than ignored: Orbax checkpoints
+(`--checkpoint-dir`), multi-process runs, a device mesh and worker
+processes for IO (ROADMAP.md queues each).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -23,7 +27,8 @@ import torch
 
 from drn_tpu_torch.config import ExperimentConfig, get_config
 from drn_tpu_torch.convert import load_torch_checkpoint
-from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
+from drn_tpu_torch.data.pipeline import (BatchIterator, build_vocab,
+                                         make_dataset)
 from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.layers import KERNEL_OPS, Ops
 from drn_tpu_torch.ops.metrics import metric_name, recall_at_n
@@ -61,24 +66,49 @@ def init_parameters(model: DRN, seed: int = 0) -> DRN:
 
 
 def build_model(cfg: ExperimentConfig, device=None, seed: int = 0,
-                ops: Ops = KERNEL_OPS) -> DRN:
+                ops: Ops = KERNEL_OPS,
+                pretrained_embeddings: Optional[np.ndarray] = None) -> DRN:
     """The DRN of `cfg` with seeded random weights, on `device` (cuda by
     default). `ops=PLAIN_OPS` builds the model from the kernels' plain
-    versions, the one the kernels' model is held against on the card."""
+    versions, the one the kernels' model is held against on the card.
+    GloVe mode: `pretrained_embeddings` (the vocab's table) fill the
+    embedding, frozen, and its row count replaces `model.vocab_size`."""
     dev = resolve_device(device)
-    model = DRN(cfg.model, base_len=cfg.data.num_clips, ops=ops)
-    return init_parameters(model, seed).to(dev).eval()
+    mcfg = cfg.model
+    if pretrained_embeddings is not None:
+        mcfg = dataclasses.replace(
+            mcfg, vocab_size=pretrained_embeddings.shape[0])
+    model = init_parameters(DRN(
+        mcfg, base_len=cfg.data.num_clips, ops=ops,
+        freeze_embeddings=pretrained_embeddings is not None), seed)
+    if pretrained_embeddings is not None:
+        with torch.no_grad():
+            model.query_encoder.embed.weight.copy_(
+                torch.as_tensor(pretrained_embeddings, dtype=torch.float32))
+    return model.to(dev).eval()
+
+
+def batch_features(batch: Dict[str, torch.Tensor],
+                   table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The batch's features: its own, or its rows of the staged table
+    (data/staging.py), gathered on the table's device."""
+    if "features" in batch:
+        return batch["features"]
+    return table.index_select(0, batch["video_row"].long())
 
 
 def make_eval_step(cfg: ExperimentConfig, model: DRN):
-    """step(batch of device tensors) → (counts, n_valid, segments in
-    seconds (B, K, 2) in NMS order, keep (B, K), top scores (B, K))."""
+    """step(batch of device tensors, staged table or None) → (counts,
+    n_valid, segments in seconds (B, K, 2) in NMS order, keep (B, K), top
+    scores (B, K))."""
     e = cfg.eval
     base_len = float(cfg.data.num_clips)
 
     @torch.no_grad()
-    def eval_step(batch: Dict[str, torch.Tensor]):
-        out = model(batch["features"], batch["word_ids"], batch["query_mask"])
+    def eval_step(batch: Dict[str, torch.Tensor],
+                  table: Optional[torch.Tensor] = None):
+        out = model(batch_features(batch, table), batch["word_ids"],
+                    batch["query_mask"])
         score = torch.sigmoid(out["match_logits"])
         if e.score_use_iou_head and e.score_iou_weight > 0.0:
             iou_s = torch.sigmoid(out["iou_logits"])
@@ -112,9 +142,10 @@ def _refuse_out_of_scope(cfg: ExperimentConfig, mesh, device_features) -> None:
     if mesh is not None:
         raise NotImplementedError("evaluate(mesh=...): the port runs one "
                                   "device so far (ROADMAP.md, multi-GPU)")
-    if device_features:
-        raise NotImplementedError("evaluate(device_features=True): staging "
-                                  "is not ported yet (ROADMAP.md)")
+    if device_features and cfg.data.dataset == "synthetic":
+        raise ValueError("device_features reads per-video feature files; "
+                         "the synthetic fixture generates features in "
+                         "memory")
     if cfg.data.num_workers > 0:
         raise NotImplementedError("data.num_workers > 0: the port batches in "
                                   "process only (ROADMAP.md)")
@@ -124,21 +155,37 @@ def _refuse_out_of_scope(cfg: ExperimentConfig, mesh, device_features) -> None:
                                   "yet (ROADMAP.md, multi-GPU)")
 
 
+def stage_on_device(dataset, device):
+    """Stage `dataset`'s videos (data/staging.py) → (the table on
+    `device`, the feature-free view). The host copy is dropped."""
+    from drn_tpu_torch.data.staging import stage_video_features
+
+    table, view = stage_video_features(dataset)
+    return torch.from_numpy(table).to(device), view
+
+
 def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
              split: str = "test", *, device=None, mesh=None,
              device_features: bool = False) -> Dict[str, float]:
-    """Full-split evaluation → {"R@n,IoU=m": percentage, "mIoU": ...}."""
+    """Full-split evaluation → {"R@n,IoU=m": percentage, "mIoU": ...}.
+
+    `device_features` stages each unique video's resampled grid in one
+    table on `device` before the loop; the host then feeds word ids and
+    row indices only. The metrics equal the streamed path's."""
     _refuse_out_of_scope(cfg, mesh, device_features)
     dev = resolve_device(device)
     model.to(dev).eval()
     if dataset is None:
         dataset = make_dataset(cfg.data, cfg.model, split=split)
+    table = None
+    if device_features:
+        table, dataset = stage_on_device(dataset, dev)
     batches = BatchIterator(dataset, cfg.eval.batch_size, shuffle=False, seed=0)
     step = make_eval_step(cfg, model)
     totals: Optional[Dict] = None
     n_total = None
     for batch in batches.epoch(0):
-        counts, n_valid, *_ = step(to_device(batch, dev))
+        counts, n_valid, *_ = step(to_device(batch, dev), table)
         if totals is None:
             totals, n_total = counts, n_valid
         else:
@@ -168,6 +215,18 @@ def predict(cfg: ExperimentConfig, model: DRN, batch: Dict[str, np.ndarray],
     return segs.cpu().numpy(), keep.cpu().numpy(), scores.cpu().numpy()
 
 
+_DATA_FLAGS = ("feature_dir", "annotation_path", "glove_path", "feature_fps",
+               "num_workers")
+
+
+def with_data_flags(cfg: ExperimentConfig, args) -> ExperimentConfig:
+    """`cfg` with the data fields that the CLI's flags of the same names
+    set (those the parser has and the user gave)."""
+    da = {f: getattr(args, f) for f in _DATA_FLAGS
+          if getattr(args, f, None) is not None}
+    return cfg.replace(data=dataclasses.replace(cfg.data, **da)) if da else cfg
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="drn_tpu_torch evaluator")
     p.add_argument("--config", default="charades_c3d")
@@ -176,6 +235,13 @@ def main(argv=None):
     p.add_argument("--torch-checkpoint", default=None,
                    help=".pth in the parity schema")
     p.add_argument("--split", default="test")
+    p.add_argument("--feature-dir", default=None)
+    p.add_argument("--annotation-path", default=None)
+    p.add_argument("--glove-path", default=None)
+    p.add_argument("--device-features", action="store_true",
+                   help="stage each unique video's resampled features in "
+                        "one table on the device before the eval loop "
+                        "(V*num_clips*F*4 bytes of device memory)")
     p.add_argument("--device", default=None,
                    help="torch device; cuda when omitted")
     args = p.parse_args(argv)
@@ -186,10 +252,15 @@ def main(argv=None):
             ".pth and pass --torch-checkpoint")
     if not args.torch_checkpoint:
         p.error("--torch-checkpoint is required")
-    cfg = get_config(args.config)
-    model = build_model(cfg, device=args.device)
+    device = resolve_device(args.device)  # no card: raise before any read
+    cfg = with_data_flags(get_config(args.config), args)
+    vocab = build_vocab(cfg.data, cfg.model)
+    model = build_model(cfg, device=device,
+                        pretrained_embeddings=vocab.embeddings)
     model.load_state_dict(load_torch_checkpoint(args.torch_checkpoint))
-    results = evaluate(cfg, model, split=args.split, device=args.device)
+    dataset = make_dataset(cfg.data, cfg.model, vocab=vocab, split=args.split)
+    results = evaluate(cfg, model, dataset, device=device,
+                       device_features=args.device_features)
     for k, v in results.items():
         print(f"{k}: {v:.2f}")
 

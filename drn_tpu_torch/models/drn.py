@@ -74,13 +74,13 @@ def conv_block_sites(cfg: ModelConfig, base_len: int):
 
 class DRN(nn.Module):
     def __init__(self, cfg: ModelConfig, base_len: int,
-                 ops: Ops = KERNEL_OPS):
+                 ops: Ops = KERNEL_OPS, freeze_embeddings: bool = False):
         super().__init__()
         if base_len % (2 ** (cfg.num_levels - 1)):
             raise ValueError("num_clips must be divisible by the coarsest "
                              "pyramid stride")
         self.cfg, self.base_len = cfg, base_len
-        self.query_encoder = QueryEncoder(cfg)
+        self.query_encoder = QueryEncoder(cfg, freeze_embeddings)
         self.backbone = Backbone(cfg, ops)
         self.fusion = CrossModalFusion(cfg, ops)
         self.fpn = TemporalFPN(cfg, ops)

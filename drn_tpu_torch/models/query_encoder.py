@@ -6,6 +6,10 @@ No Pallas kernel covers the encoder, so the recurrence is `nn.LSTM`
 valid prefix flipped in place (padding stays where it is), as flax's
 `flip_sequences` does; outputs at padded positions are masked out of the
 pool, so only valid positions have to agree with the JAX package.
+
+GloVe mode (`freeze_embeddings=True`, the table holding the pretrained
+rows): the table is read detached, as the JAX package's stop_gradient, so
+no gradient reaches it; the optimizer then sees a zero gradient for it.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import List
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from drn_tpu_torch.config import ModelConfig
 
@@ -27,9 +32,10 @@ def masked_reverse(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 class QueryEncoder(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, freeze_embeddings: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.freeze_embeddings = freeze_embeddings
         d, half = cfg.hidden_dim, cfg.hidden_dim // 2
         self.embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
         in_dims = [cfg.embed_dim] + [d] * (cfg.num_lstm_layers - 1)
@@ -49,7 +55,10 @@ class QueryEncoder(nn.Module):
                 query_mask: torch.Tensor) -> List[torch.Tensor]:
         """word_ids (B, L) int, query_mask (B, L) bool → [(B, D) fp32]."""
         cfg = self.cfg
-        h = self.embed(word_ids.long()).float()
+        table = self.embed.weight
+        if self.freeze_embeddings:
+            table = table.detach()
+        h = F.embedding(word_ids.long(), table).float()
         lengths = query_mask.long().sum(-1).clamp(min=1)
         outs = []
         for fwd, bwd in zip(self.lstm_fwd, self.lstm_bwd):

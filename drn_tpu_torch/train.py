@@ -10,9 +10,13 @@ Functions (ops/cuda/autograd.py) → the optimizer, which reproduces the JAX
 package's optax chain step for step (`Optimizer`). Entry points run on
 `cuda` unless the caller passes `device="cpu"`, as evaluate's do.
 
-Out of scope in this slice, and refused rather than ignored: a device mesh
-and multi-process runs, device-resident feature staging, worker processes
-for IO, GloVe embeddings, TensorBoard, the readers of real datasets, Orbax
+Real datasets come from `--feature-dir` / `--annotation-path`; with
+`--glove-path` the embedding holds the GloVe rows of the dataset's words
+and stays frozen; `--device-features` stages every video's grid in one
+table on the device, from which each step gathers its batch.
+
+Out of scope, and refused rather than ignored: a device mesh and
+multi-process runs, worker processes for IO, TensorBoard, Orbax
 checkpoints and the preemption guard (ROADMAP.md queues each).
 """
 
@@ -21,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -28,9 +33,12 @@ import torch
 import torch.nn as nn
 
 from drn_tpu_torch.config import ExperimentConfig, get_config
-from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
-from drn_tpu_torch.evaluate import (_refuse_out_of_scope, build_model,
-                                    evaluate, resolve_device, to_device)
+from drn_tpu_torch.data.pipeline import (BatchIterator, build_vocab,
+                                         make_dataset)
+from drn_tpu_torch.evaluate import (_refuse_out_of_scope, batch_features,
+                                    build_model, evaluate, resolve_device,
+                                    stage_on_device, to_device,
+                                    with_data_flags)
 from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.losses import drn_loss
 from drn_tpu_torch.utils.checkpoint import (BestCheckpointTracker,
@@ -56,9 +64,12 @@ class Optimizer:
                           freeze: set_to_zero))        # stage-2 IoU-only
 
     over the trained parameters (`params`, parity-schema names); the others
-    are not in it and never change. Adam: b1 0.9, b2 0.999, eps 1e-8, bias
-    correction by the update count; AdamW adds weight_decay · p for every
-    parameter but the embedding. The learning rate is optax's
+    are not in it and never change. A trained parameter without a gradient
+    (the frozen GloVe table) counts as a zero gradient, as a leaf under
+    stop_gradient does in the chain: it adds nothing to the norm, its Adam
+    moments stay zero and its update is zero. Adam: b1 0.9, b2 0.999, eps
+    1e-8, bias correction by the update count; AdamW adds weight_decay · p
+    for every parameter but the embedding. The learning rate is optax's
     `piecewise_constant_schedule` read at the count of updates applied
     BEFORE this one, its boundaries `int(epoch · steps_per_epoch /
     accum_steps)` (at least 1), equal boundaries compounded. Clipping:
@@ -183,13 +194,16 @@ def make_optimizer(cfg: ExperimentConfig, steps_per_epoch: int,
 
 
 def loss_and_grads(cfg: ExperimentConfig, model: DRN,
-                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                   batch: Dict[str, torch.Tensor],
+                   table: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
     """Forward, `drn_loss`, backward: every trained parameter's `.grad`
-    holds its gradient afterwards. Returns the loss metrics as device
-    tensors."""
+    holds its gradient afterwards. A batch without features gathers them
+    from the staged `table`. Returns the loss metrics as device tensors."""
     for p in model.parameters():
         p.grad = None
-    out = model(batch["features"], batch["word_ids"], batch["query_mask"])
+    out = model(batch_features(batch, table), batch["word_ids"],
+                batch["query_mask"])
     loss, metrics = drn_loss(cfg.model, cfg.train, out, model.locations,
                              model.level_ids, batch["gt_grid"],
                              cfg.data.num_clips, batch["valid"])
@@ -198,13 +212,13 @@ def loss_and_grads(cfg: ExperimentConfig, model: DRN,
 
 
 def make_train_step(cfg: ExperimentConfig, model: DRN, optimizer: Optimizer
-                    ) -> Callable[[Dict[str, torch.Tensor]],
-                                  Dict[str, torch.Tensor]]:
-    """step(batch of device tensors) → loss metrics (device tensors); the
-    model's parameters and the optimizer's state are updated in place."""
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """step(batch of device tensors, staged table or None) → loss metrics
+    (device tensors); the model's parameters and the optimizer's state are
+    updated in place."""
 
-    def step(batch):
-        metrics = loss_and_grads(cfg, model, batch)
+    def step(batch, table=None):
+        metrics = loss_and_grads(cfg, model, batch, table)
         optimizer.step()
         return metrics
 
@@ -222,10 +236,11 @@ def selection_metric(results: Optional[Dict[str, float]]) -> Optional[float]:
     return float(np.mean(r1 if r1 else list(results.values())))
 
 
-def _default_eval_fn(cfg: ExperimentConfig, device):
+def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None):
     """Periodic eval on the val split (test when there is none), or None
     when neither can be read. A split-less annotation path would score
-    the training annotations, so it disables periodic eval."""
+    the training annotations, so it disables periodic eval. `vocab` is the
+    training vocab, so the word ids match the embedding table."""
     ann = cfg.data.annotation_path
     if ann and "{split}" not in ann:
         print(f"[train] annotation_path {ann!r} has no '{{split}}' "
@@ -234,7 +249,8 @@ def _default_eval_fn(cfg: ExperimentConfig, device):
     dataset = None
     for split in [cfg.data.val_split] if cfg.data.val_split else ["val", "test"]:
         try:
-            dataset = make_dataset(cfg.data, cfg.model, split=split)
+            dataset = make_dataset(cfg.data, cfg.model, vocab=vocab,
+                                   split=split)
             break
         except FileNotFoundError:
             continue
@@ -257,10 +273,6 @@ def _default_eval_fn(cfg: ExperimentConfig, device):
 def _refuse_train_out_of_scope(cfg: ExperimentConfig, mesh,
                                device_features) -> None:
     _refuse_out_of_scope(cfg, mesh, device_features)
-    if cfg.data.glove_path:
-        raise NotImplementedError("data.glove_path: GloVe embeddings (and "
-                                  "their freeze) are not ported yet "
-                                  "(ROADMAP.md)")
     if cfg.train.tensorboard_dir:
         raise NotImplementedError("train.tensorboard_dir: the port logs "
                                   "JSON lines to stderr only")
@@ -273,18 +285,25 @@ def train(cfg: ExperimentConfig, *, device=None,
           device_features: bool = False) -> DRN:
     """A full training run on `device` (cuda by default); returns the
     trained model. `run_info` (a caller's dict) receives `start_step`, the
-    step the run began from after any restore, and `step`, where it ended.
-    `eval_fn(model, epoch)` → selection metric or None replaces the
-    periodic val-split eval."""
+    step the run began from after any restore, and `step`, where it
+    ended. `eval_fn(model, epoch)` → selection metric or None replaces the
+    periodic val-split eval. `device_features` stages every training
+    video's grid in one table on `device` before the first step
+    (data/staging.py)."""
     _refuse_train_out_of_scope(cfg, mesh, device_features)
     dev = resolve_device(device)
     tc = cfg.train
     log = MetricLogger(f"train/{cfg.name}/stage{tc.stage}")
-    dataset = make_dataset(cfg.data, cfg.model, split="train")
+    vocab = build_vocab(cfg.data, cfg.model)
+    dataset = make_dataset(cfg.data, cfg.model, vocab=vocab, split="train")
+    table = None
+    if device_features:
+        table, dataset = stage_on_device(dataset, dev)
     batches = BatchIterator(dataset, cfg.data.batch_size, shuffle=True,
                             seed=tc.seed)
     steps_per_epoch = len(batches)
-    model = build_model(cfg, device=dev, seed=tc.seed)
+    model = build_model(cfg, device=dev, seed=tc.seed,
+                        pretrained_embeddings=vocab.embeddings)
 
     ckpt_dir = os.path.join(tc.checkpoint_dir, cfg.name, f"stage{tc.stage}")
     ckpt = CheckpointManager(ckpt_dir, keep=tc.keep_checkpoints,
@@ -317,7 +336,7 @@ def train(cfg: ExperimentConfig, *, device=None,
         run_info["start_step"] = start_step
 
     if eval_fn is None:
-        eval_fn = _default_eval_fn(cfg, dev)
+        eval_fn = _default_eval_fn(cfg, dev, vocab)
     best: Optional[BestCheckpointTracker] = None
     train_step = make_train_step(cfg, model, optimizer)
 
@@ -336,7 +355,7 @@ def train(cfg: ExperimentConfig, *, device=None,
         step += skip
         model.train()  # cuDNN's LSTM backward runs in training mode only
         for batch in batches.epoch(epoch, skip_batches=skip):
-            metrics = train_step(to_device(batch, dev))
+            metrics = train_step(to_device(batch, dev), table)
             step += 1
             if step % tc.log_every_steps == 0 or step == 1:
                 log.log(step, {"epoch": epoch, **metrics})
@@ -358,6 +377,30 @@ def train(cfg: ExperimentConfig, *, device=None,
     return model
 
 
+def preflight(cfg: ExperimentConfig, sample: int) -> None:
+    """The dataset validator on the train split, before any device work:
+    its warnings and errors on stderr, SystemExit on an error. A missing
+    val split only skips periodic eval, so it does not gate the run."""
+    if cfg.data.dataset == "synthetic":
+        print("[preflight] synthetic dataset — nothing to validate",
+              file=sys.stderr)
+        return
+    from drn_tpu_torch.data.validate import validate
+
+    report = validate(cfg, splits=("train",), sample=sample)
+    for rep in report.get("splits", []):
+        for w in rep["warnings"]:
+            print(f"[preflight][{rep['split']}] WARN: {w}", file=sys.stderr)
+        for e in rep["errors"]:
+            print(f"[preflight][{rep['split']}] ERROR: {e}", file=sys.stderr)
+    for e in report.get("errors", []):
+        print(f"[preflight] ERROR: {e}", file=sys.stderr)
+    if not report["ok"]:
+        raise SystemExit("preflight validation failed — fix the data errors "
+                         "above (or rerun without --preflight)")
+    print("[preflight] ok", file=sys.stderr)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="drn_tpu_torch trainer")
     p.add_argument("--config", default="charades_c3d")
@@ -374,6 +417,15 @@ def main(argv=None):
                         "optimizer update (--max-steps, checkpoints and "
                         "logging count micro-steps)")
     p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--feature-dir", default=None)
+    p.add_argument("--feature-fps", type=float, default=None,
+                   help="feature rows per second of video (extraction "
+                        "rate); unset configs assume 1.0 with a warning — "
+                        "seconds outputs scale by this")
+    p.add_argument("--annotation-path", default=None)
+    p.add_argument("--glove-path", default=None)
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="worker processes for IO (not ported: > 0 raises)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--init-from", default=None,
                    help="stage-1 checkpoint directory for stage-2 init")
@@ -381,11 +433,23 @@ def main(argv=None):
     p.add_argument("--allow-config-mismatch", action="store_true",
                    help="downgrade the checkpoint-vs-active config check "
                         "(resume / --init-from) to a warning")
+    p.add_argument("--preflight", action="store_true",
+                   help="run the dataset validator (drn_tpu_torch.data."
+                        "validate) on the train split before building the "
+                        "model; exit non-zero on anything a run would "
+                        "crash on or silently mis-scale")
+    p.add_argument("--preflight-sample", type=int, default=200,
+                   help="feature files sampled by --preflight")
+    p.add_argument("--device-features", action="store_true",
+                   help="stage each unique video's resampled features in "
+                        "one table on the device before training "
+                        "(V*num_clips*F*4 bytes of device memory); epochs "
+                        "then read nothing from disk")
     p.add_argument("--device", default=None,
                    help="torch device; cuda when omitted")
     args = p.parse_args(argv)
 
-    cfg = get_config(args.config)
+    cfg = with_data_flags(get_config(args.config), args)
     tr, da = {}, {}
     if args.stage is not None:
         tr["stage"] = args.stage
@@ -409,9 +473,12 @@ def main(argv=None):
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))
     if da:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, **da))
+    if args.preflight:
+        preflight(cfg, args.preflight_sample)
     train(cfg, device=args.device, init_from=args.init_from,
           max_steps=args.max_steps,
-          allow_config_mismatch=args.allow_config_mismatch)
+          allow_config_mismatch=args.allow_config_mismatch,
+          device_features=args.device_features)
 
 
 if __name__ == "__main__":

@@ -509,3 +509,97 @@ def test_flops_equal_through_kernels_and_plain_versions(dev):
     x = torch.randn(4, 7, 16)
     want = estimate_flops(lstm, x)
     assert estimate_flops(lstm.to(dev), x.to(dev)) == want
+
+
+# --- the real-dataset path on the card -----------------------------------
+
+
+def _corpus_config(root, glove=False):
+    """synthetic_tiny over a small Charades-STA corpus written from a seed
+    (raw lengths 1..60 rows, some float16 files), optionally with a 300-d
+    GloVe file that lacks two of the corpus words."""
+    from drn_tpu_torch.config import get_config
+
+    rng = np.random.default_rng(7)
+    words = "person opens the door closes a window sits someone laughs".split()
+    fd = root / "feats"
+    fd.mkdir()
+    lines = []
+    for v in range(6):
+        t = [32, 1, 60, 17, 45, 9][v]
+        np.save(fd / f"C{v}.npy", rng.normal(size=(t, 128)).astype(
+            np.float16 if v % 2 else np.float32))
+        for _ in range(3):
+            s = float(rng.uniform(0, t * 0.5))
+            sent = " ".join(rng.choice(words, int(rng.integers(2, 7))))
+            lines.append(f"C{v} {s:.2f} {s + t * 0.3:.2f}##{sent}\n")
+    (root / "charades_sta_train.txt").write_text("".join(lines))
+    (root / "charades_sta_test.txt").write_text("".join(lines[:12]))
+    data = dict(dataset="charades", feature_dir=str(fd), feature_fps=2.0,
+                annotation_path=str(root / "charades_sta_{split}.txt"),
+                batch_size=8)
+    if glove:
+        with open(root / "glove.txt", "w") as f:
+            for w in words[:-2]:
+                f.write(w + " " + " ".join(
+                    f"{x:.5f}" for x in rng.normal(size=300)) + "\n")
+        data["glove_path"] = str(root / "glove.txt")
+    cfg = get_config("synthetic_tiny")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, **data),
+        train=dataclasses.replace(cfg.train, checkpoint_dir=str(root / "ck"),
+                                  eval_every_epochs=0))
+
+
+def test_staged_gather_on_the_card_equals_the_streamed_batch(dev, tmp_path):
+    from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
+    from drn_tpu_torch.evaluate import (batch_features, stage_on_device,
+                                        to_device)
+
+    cfg = _corpus_config(tmp_path)
+    ds = make_dataset(cfg.data, cfg.model, split="train")
+    table, view = stage_on_device(ds, dev)
+    assert table.device.type == "cuda" and table.shape == (6, 32, 128)
+    for full, light in zip(BatchIterator(ds, 8, shuffle=False).epoch(0),
+                           BatchIterator(view, 8, shuffle=False).epoch(0)):
+        got = batch_features(to_device(light, dev), table)
+        assert got.device.type == "cuda"
+        valid = full["valid"]
+        assert torch.equal(got.cpu()[torch.from_numpy(valid)],
+                           torch.from_numpy(full["features"][valid]))
+
+
+def test_staged_evaluate_equals_streamed_on_the_card(dev, tmp_path):
+    from drn_tpu_torch.evaluate import build_model, evaluate
+
+    cfg = _corpus_config(tmp_path)
+    model = build_model(cfg, seed=2)
+    counts = []
+    for staged in (False, True):
+        before = launch_counts()
+        res = evaluate(cfg, model, device_features=staged)
+        counts.append((res, {k: launch_counts()[k] - before[k]
+                             for k in before}))
+    assert counts[0][0] == counts[1][0]
+    assert counts[0][1] == counts[1][1] and counts[0][1]["fused_stem"] == 2
+    assert all(np.isfinite(v) for v in counts[0][0].values())
+
+
+def test_glove_train_on_the_card_keeps_the_embedding(dev, tmp_path):
+    from drn_tpu_torch.data.pipeline import build_vocab
+    from drn_tpu_torch.evaluate import build_model
+    from drn_tpu_torch.train import train
+
+    cfg = _corpus_config(tmp_path, glove=True)
+    vocab = build_vocab(cfg.data, cfg.model)
+    before = launch_counts()
+    model = train(cfg, max_steps=2, device_features=True)
+    assert launch_counts()["fused_fusion"] > before["fused_fusion"]
+    sd = model.state_dict()
+    assert sd["embed.weight"].device.type == "cuda"
+    assert torch.equal(sd["embed.weight"].cpu(),
+                       torch.from_numpy(vocab.embeddings))
+    init = build_model(cfg, device="cpu", seed=cfg.train.seed,
+                       pretrained_embeddings=vocab.embeddings).state_dict()
+    assert not torch.equal(sd["stem.conv.weight"].cpu(),
+                           init["stem.conv.weight"])

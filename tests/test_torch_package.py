@@ -36,9 +36,17 @@ def test_config_dataclasses_equal_jax():
             dataclasses.asdict(getattr(jax_config, cls)()), cls
 
 
+# Every module of the port: the scan below must reach each one.
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__") for p in (ROOT / "drn_tpu_torch").rglob("*.py"))
+
+
 def test_port_imports_no_jax_and_nothing_of_drn_tpu():
     """Import every port module and chip_smoke in a fresh interpreter;
-    no jax/flax/optax/orbax or drn_tpu module may be loaded."""
+    no jax/flax/optax/orbax or drn_tpu module may be loaded, and every
+    module of the port (the native reader's binding, infer, the data
+    layer included) must have been imported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import drn_tpu_torch, chip_smoke\n"
@@ -47,14 +55,21 @@ def test_port_imports_no_jax_and_nothing_of_drn_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'drn_tpu'))\n"
-        "print(len([m for m in sys.modules if m.startswith('drn_tpu_torch')]),"
-        " bad)\n")
+        "print(' '.join(m for m in sys.modules "
+        "if m.startswith('drn_tpu_torch')))\n"
+        "print(bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20 and bad == "[]", out.stdout
+    loaded, bad = out.stdout.strip().splitlines()
+    assert bad == "[]", bad
+    assert not set(PORT_MODULES) - set(loaded.split()), \
+        set(PORT_MODULES) - set(loaded.split())
+    assert {"drn_tpu_torch.native", "drn_tpu_torch.infer",
+            "drn_tpu_torch.data.validate", "drn_tpu_torch.data.staging",
+            "drn_tpu_torch.data.datasets", "drn_tpu_torch.data.features",
+            "drn_tpu_torch.data.vocab"} <= set(PORT_MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
@@ -75,7 +90,14 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
+    from drn_tpu_torch import infer, train
+
     cfg = port_config.get_config("synthetic_tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train(cfg, max_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer.main(["--config", "synthetic_tiny", "--torch-checkpoint",
+                    "m.pth", "--features", "v.npy", "--query", "x"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_eval.build_model(cfg)
     model = port_eval.build_model(cfg, device="cpu")
@@ -103,13 +125,19 @@ def test_evaluate_on_the_cpu_when_asked():
 
 
 def test_out_of_scope_options_raise():
+    """Refused rather than ignored: a mesh, worker processes, Orbax;
+    staging the synthetic fixture (it has no feature files) and a real
+    dataset without its annotation files raise too."""
     cfg = port_config.get_config("synthetic_tiny")
     model = port_eval.build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="synthetic"):
         port_eval.evaluate(cfg, model, device="cpu", device_features=True)
     with pytest.raises(NotImplementedError):
         port_eval.evaluate(cfg, model, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_eval.evaluate(cfg.replace(data=dataclasses.replace(
+            cfg.data, num_workers=2)), model, device="cpu")
+    with pytest.raises(FileNotFoundError, match="annotation file"):
         port_eval.evaluate(port_config.get_config("charades_c3d"), model,
                            device="cpu")
     with pytest.raises(NotImplementedError, match="Orbax"):

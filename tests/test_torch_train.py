@@ -357,8 +357,7 @@ def test_main_trains_on_the_cpu(tmp_path, monkeypatch):
 
 def test_out_of_scope_options_raise(tmp_path):
     cfg = _loop_config(tmp_path)
-    for bad in (dict(data=dataclasses.replace(cfg.data, glove_path="g.txt")),
-                dict(data=dataclasses.replace(cfg.data, num_workers=2)),
+    for bad in (dict(data=dataclasses.replace(cfg.data, num_workers=2)),
                 dict(train=dataclasses.replace(cfg.train,
                                                tensorboard_dir="tb"))):
         with pytest.raises(NotImplementedError):
