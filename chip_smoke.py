@@ -63,6 +63,30 @@ non-zero exit code:
               launched), the staged train step's time, and `infer.main` on
               one written video with the eval model's weights (--top
               segments per query inside [0, duration]).
+  7. serve    the batched HTTP server (`drn_tpu_torch.serve`) at the
+              flagship width (B=48) on 127.0.0.1, seeded weights read from
+              a .pth, the `dataset` phase's corpus (written again from its
+              seed) staged in host RAM (`--stage-corpus`): 8 `video_id`
+              requests, one `features_path` and one inline `features`
+              request (a 5-row video), sent one at a time, each answer
+              equal bit for bit to `evaluate.predict` on the padded batch
+              the service builds for it (one live row, 47 padding rows);
+              the batcher thread's launches, 1 / 3 / 15 a batch as in
+              `main` (nothing else touches the card meanwhile); one
+              request's batch path without HTTP (the padded batch, its
+              copy to the card, the whole `predict`; ms, synchronised);
+              then `probes.serve_load` at concurrency 1, 16 and 64 with
+              max_wait_ms=5 (q/s, p50/p95 ms, mean batch fill; no error).
+  8. export   `probes.export_roundtrip`: the flagship eval step exported
+              on the card (`export.export_eval_step`, B=48), its graph
+              holding one custom-op node a kernel launch (1 / 3 / 15) and
+              no convolution but the heads' three output convs (Cout 2, 1,
+              1, left to cuDNN as the JAX package leaves them to XLA);
+              a fresh interpreter loads it with `load_exported` alone and
+              reproduces the live step bit for bit, with the exported
+              weights and with a second seed's passed as `params`; the
+              live step's and the artifact's host-clock step times, in
+              turns in this process.
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -136,6 +160,11 @@ DS_WORDS = (
     "dresses undresses watches reads writes tidies throws into on off "
     "from at their his her then").split()
 DS_NOT_IN_GLOVE = {"sneezes", "undresses", "tidies", "vacuum"}  # → UNK
+
+# The serve phase: requests, and the load probe's concurrencies and window.
+SERVE_VIDEO_IDS = 8
+SERVE_CONCURRENCY = (1, 16, 64)
+SERVE_LOAD_S = 3.0
 
 
 def emit(obj) -> None:
@@ -807,6 +836,174 @@ def dataset_phase(base, dev):
         device=torch.cuda.get_device_name(0))
 
 
+def serve_phase(base, dev):
+    """The HTTP server on the dataset phase's corpus; see the module's
+    docstring."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from drn_tpu_torch import serve
+    from drn_tpu_torch.evaluate import build_model, predict, to_device
+    from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from drn_tpu_torch.probes import serve_load
+    from drn_tpu_torch.utils.profiling import time_fn
+
+    def post(url, payload):
+        req = urllib.request.Request(
+            url + "/ground", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    with tempfile.TemporaryDirectory(prefix="drn_serve_") as root:
+        fields = write_corpus(root, base.model.feature_dim)
+        fd = fields["feature_dir"]
+        cfg = base.replace(data=dataclasses.replace(base.data,
+                                                    feature_fps=DS_FPS))
+        ckpt = os.path.join(root, "serve_model.pth")
+        torch.save({"model": build_model(cfg, device="cpu", seed=2)
+                    .state_dict()}, ckpt)
+        t0 = time.perf_counter()
+        service = serve.build_service(cfg, torch_checkpoint=ckpt,
+                                      max_wait_ms=5.0, top=5,
+                                      features_root=fd, stage_corpus=True,
+                                      device=dev)
+        stage_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        service.start()
+        start_s = time.perf_counter() - t0
+        httpd = serve.GroundingHTTPServer(("127.0.0.1", 0),
+                                          serve.make_handler(service))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        rng = np.random.default_rng(4)
+        queries = [" ".join(rng.choice(DS_WORDS, 6)) for _ in range(10)]
+        payloads = [{"query": queries[i], "video_id": f"V{i:04d}"}
+                    for i in range(SERVE_VIDEO_IDS)]
+        payloads += [
+            {"query": queries[8], "duration": 12.5,
+             "features_path": os.path.join(fd, "V0010.npy")},
+            {"query": queries[9], "features": rng.standard_normal(
+                (5, base.model.feature_dim), dtype=np.float32).tolist()}]
+        try:
+            reset_launch_counts()
+            batches = service.batches
+            answers = [post(url, p) for p in payloads]
+            launches = launch_counts()
+            batches = service.batches - batches
+            want = {k: n * batches for k, n in
+                    eval_launches_per_step(cfg.model).items()}
+            if batches != len(payloads) or launches != want:
+                raise AssertionError(f"serve: {batches} batches for "
+                                     f"{len(payloads)} requests, launches "
+                                     f"{launches}, expected {want}")
+            for p, got in zip(payloads, answers):
+                segs, keep, scores = predict(
+                    service.cfg, service.model,
+                    service.padded_batch([service.prepare(p)]), device=dev)
+                kept = [j for j in range(segs.shape[1]) if keep[0, j]][:5]
+                ref = {"segments": [[float(segs[0, j, 0]),
+                                     float(segs[0, j, 1])] for j in kept],
+                       "scores": [float(scores[0, j]) for j in kept]}
+                if got != ref or len(kept) != 5:
+                    raise AssertionError(f"serve: answer {got} vs predict "
+                                         f"{ref} for {list(p)}")
+            # One request's batch path without HTTP: the padded batch on
+            # the host, its copy to the card, the whole predict (each call
+            # synchronised).
+            req = service.prepare(payloads[0])
+            batch = service.padded_batch([req])
+            path_ms = {
+                "padded_batch": time_fn(service.padded_batch, [req],
+                                        iters=10)["median_ms"],
+                "to_device": time_fn(to_device, batch, dev,
+                                     iters=10)["median_ms"],
+                "predict": time_fn(predict, service.cfg, service.model,
+                                   batch, dev, iters=10)["median_ms"]}
+            load = []
+            for conc in SERVE_CONCURRENCY:
+                row = serve_load.run_load(service, url,
+                                          payloads[:SERVE_VIDEO_IDS], conc,
+                                          SERVE_LOAD_S)
+                if row is None or row["errors"]:
+                    raise AssertionError(f"serve load at {conc}: {row}")
+                load.append(row)
+        finally:
+            httpd.shutdown()
+            service.stop()
+    return dict(
+        phase="serve", config=base.name, batch_size=service.batch_size,
+        staged_videos=len(service._corpus), stage_s=stage_s,
+        start_s=start_s, requests=len(payloads),
+        kinds=dict(video_id=SERVE_VIDEO_IDS, features_path=1, features=1),
+        batches=batches, launches=launches,
+        launches_per_batch={k: n // batches for k, n in launches.items()},
+        answers_equal_predict=True, first_answer=answers[0],
+        batch_path_ms=path_ms, load=load,
+        device=torch.cuda.get_device_name(0))
+
+
+def export_phase(cfg, dev):
+    """The exported eval step; see the module's docstring."""
+    import torch
+
+    from drn_tpu_torch import export
+    from drn_tpu_torch.evaluate import build_model, make_eval_step
+    from drn_tpu_torch.probes import export_roundtrip
+    from drn_tpu_torch.utils.profiling import host_ms
+
+    per_step = {k: n for k, n in eval_launches_per_step(cfg.model).items()
+                if n}
+    with tempfile.TemporaryDirectory(prefix="drn_export_") as out:
+        ep, sidecar, batch, _ = export_roundtrip.do_export(
+            out, cfg.name, None, dev, seeds=(0, 1))
+        calls = [n for n in ep.graph.nodes if n.op == "call_function"]
+        nodes = dict(Counter(str(n.target).split(".")[1] for n in calls
+                             if str(n.target).startswith("drn_tpu_torch.")))
+        convs = sorted(n.args[1].meta["val"].shape[0] for n in calls
+                       if "conv" in str(n.target)
+                       and not str(n.target).startswith("drn_tpu_torch."))
+        if nodes != per_step or convs != [1, 1, 2]:
+            raise AssertionError(f"export graph: custom ops {nodes} "
+                                 f"(expected {per_step}), library convs "
+                                 f"of Cout {convs}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "drn_tpu_torch.probes.export_roundtrip",
+             "--mode", "run", "--out", out], capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError(f"export run in a fresh process failed "
+                                 f"({proc.returncode}):\n{proc.stdout}\n"
+                                 f"{proc.stderr[-4000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        if fresh["launches_two_calls"] != {
+                k: 2 * per_step.get(k, 0) for k in
+                fresh["launches_two_calls"]}:
+            raise AssertionError(f"export run launches "
+                                 f"{fresh['launches_two_calls']}")
+
+        # The live step and the artifact, in turns, on the host clock.
+        call, _ = export.load_exported(os.path.join(out, "drn.pt2"))
+        on_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        step = make_eval_step(cfg, build_model(cfg, device=dev, seed=0))
+        runs = {"live": lambda: step(on_dev),
+                "artifact": lambda: call(None, on_dev)}
+        times = {"live": [], "artifact": []}
+        for name in ("live", "artifact", "artifact", "live"):
+            times[name].append(host_ms(runs[name], 20))
+        artifact_bytes = os.path.getsize(os.path.join(out, "drn.pt2"))
+    return dict(
+        phase="export", config=cfg.name, batch_size=cfg.eval.batch_size,
+        custom_op_nodes=nodes, library_conv_couts=convs,
+        artifact_bytes=artifact_bytes, export_s=fresh["export_s"],
+        fresh_process=fresh, live_step_ms=times["live"],
+        artifact_step_ms=times["artifact"],
+        device=torch.cuda.get_device_name(0))
+
+
 def main() -> int:
     import torch
 
@@ -844,6 +1041,8 @@ def main() -> int:
     probe_launches, probe_line = probe_phase(dev)
     emit(probe_line)
     emit(dataset_phase(base, dev))
+    emit(serve_phase(base, dev))
+    emit(export_phase(base, dev))
     # Each kernel's launches on its main path: the eval step's kernels in
     # the `main` run, `fused_fusion` (backward only) in the `train` run,
     # `pallas_block` in the `probe` run.

@@ -57,8 +57,12 @@ def packed(owner: nn.Module, build: Callable[[], tuple], *params,
     """`build()`'s result, cached on `owner` until one of `params` changes
     (in place: `_version`; by a move: `data_ptr`) or `dtype` does. When
     grad is enabled and a parameter needs it, `build()` runs in the graph
-    on every call instead (the cache would cut the gradient off)."""
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+    on every call instead (the cache would cut the gradient off); so it
+    does while `torch.export` traces the model, whose tensors have no
+    storage to key a cache by, and the packing becomes part of the
+    exported graph."""
+    if torch.compiler.is_compiling() or (
+            torch.is_grad_enabled() and any(p.requires_grad for p in params)):
         return build()
     key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
     cache = owner.__dict__.get("_packed_cache")

@@ -4,10 +4,17 @@ Each wrapper launches its kernel for a CUDA tensor and calls its plain
 PyTorch version for a CPU tensor, and counts its kernel launches in a plain
 integer attribute (`wrapper.launches`), so a run can show that the main
 path went through the kernels. Their gradients are in `autograd.py`.
-(`fused_fusion`, the wrapper, is reached through its module of the same
-name: `drn_tpu_torch.ops.cuda.fused_fusion.fused_fusion`.) `pallas_block`
-is the measurement probe's block (`drn_tpu_torch.probes`), with its plain
-version and the probe's comparison `xla_block`.
+The four package kernels launch through `torch.library` custom ops
+(`torch.ops.drn_tpu_torch.conv_ln_relu`, `.fused_fusion_block`,
+`.fused_fusion`, `.fused_stem`; CUDA only, each with a fake function that
+gives its output's shape), so `torch.export` keeps each launch as one
+opaque node (export.py); importing this package registers them. The
+checks, the launch plan, the count and the FLOPs run in the op's body,
+when it runs. (`fused_fusion`, the wrapper, is reached through its module
+of the same name: `drn_tpu_torch.ops.cuda.fused_fusion.fused_fusion`.)
+`pallas_block` is the measurement probe's block (`drn_tpu_torch.probes`),
+with its plain version and the probe's comparison `xla_block`; it never
+lies in an exported graph and stays a direct ctypes launch.
 """
 
 from __future__ import annotations

@@ -36,7 +36,8 @@ from drn_tpu_torch.ops.cuda import _build
 from drn_tpu_torch.ops.cuda.conv_block import (LN_EPS, check_cout,
                                                check_cuda_inputs, conv_plan,
                                                conv_taps, layer_norm,
-                                               same_padding, stream_of)
+                                               refuse_grad, same_padding,
+                                               stream_of)
 from drn_tpu_torch.ops.cuda.fused_fusion import MAX_K
 from drn_tpu_torch.utils import flops
 
@@ -78,6 +79,8 @@ def pallas_block(v, q, w, b, scale, offset, eps: float = LN_EPS):
         raise ValueError(f"pallas_block: K={k}; the kernel takes K up to "
                          f"{MAX_K}")
     check_cout("pallas_block", dout)
+    refuse_grad("pallas_block", v=v, q=q, w=w, b=b, scale=scale,
+                offset=offset)
     check_cuda_inputs(
         "pallas_block",
         v=(v, torch.bfloat16, (None, None, d)),

@@ -2,10 +2,11 @@
 `drn_tpu/ops/pallas/conv_block.py::conv_ln_relu`.
 
 `conv_ln_relu` launches the CUDA kernel (csrc/conv_block.cu on
-csrc/conv_sm90.cuh, built on first use) for a CUDA tensor and calls
-`conv_ln_relu_reference`, its plain PyTorch version, for a CPU tensor.
-Nothing else chooses between them, and a CUDA tensor the kernel does not
-take raises: there is no fallback.
+csrc/conv_sm90.cuh, built on first use) for a CUDA tensor, through the
+custom op `torch.ops.drn_tpu_torch.conv_ln_relu` (`conv_ln_relu_op`), and
+calls `conv_ln_relu_reference`, its plain PyTorch version, for a CPU
+tensor. Nothing else chooses between them, and a CUDA tensor the kernel
+does not take raises: there is no fallback.
 
 The kernel owns 64 output rows and all Cout columns a block (wgmma, a TMA
 weight ring, A gathered row by row). `conv_plan` decides what the C source
@@ -24,10 +25,11 @@ an input that needs a gradient; the model reaches it through
 `ops/cuda/autograd.py`, whose backward recomputes through it.
 
 The helpers below (`same_padding`, `layer_norm`, `conv_taps`,
-`check_cuda_inputs`, `check_cout`, `stream_of`, and `conv_vjp`, the
-conv's VJP for the backward passes) are shared by the other kernels'
-modules. Each wrapper reports its conv's FLOPs where it launches
-(`utils.flops.add_conv`): `estimate_flops` cannot see a ctypes launch.
+`check_cuda_inputs`, `refuse_grad`, `check_cout`, `stream_of`, and
+`conv_vjp`, the conv's VJP for the backward passes) are shared by the
+other kernels' modules. Each op reports its conv's FLOPs where it
+launches (`utils.flops.add_conv`): `estimate_flops` cannot see a ctypes
+launch.
 """
 
 from __future__ import annotations
@@ -76,8 +78,8 @@ def stream_of(t: torch.Tensor) -> int:
 def check_cuda_inputs(name: str, **tensors: Tuple[torch.Tensor, torch.dtype,
                                                   tuple]) -> None:
     """Raise unless every tensor is on the first one's CUDA device, of the
-    dtype and shape given (None in a shape matches any size), contiguous,
-    16-byte aligned, and needs no gradient."""
+    dtype and shape given (None in a shape matches any size), contiguous
+    and 16-byte aligned."""
     dev = None
     for arg, (t, dtype, shape) in tensors.items():
         if t.device.type != "cuda":
@@ -96,7 +98,16 @@ def check_cuda_inputs(name: str, **tensors: Tuple[torch.Tensor, torch.dtype,
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-        if torch.is_grad_enabled() and t.requires_grad:
+
+
+def refuse_grad(name: str, **tensors: torch.Tensor) -> None:
+    """Raise if grad is enabled and a tensor needs it: the kernels are
+    forward only. The wrappers check this before their custom op, whose
+    body runs with grad off."""
+    if not torch.is_grad_enabled():
+        return
+    for arg, t in tensors.items():
+        if t.requires_grad:
             raise RuntimeError(
                 f"{name}: {arg} requires grad; the CUDA kernel is forward "
                 "only (call it under torch.no_grad(), or through "
@@ -187,11 +198,26 @@ def conv_ln_relu(x, w, b, scale, offset, stride: int = 1,
 
     x: (B, T, Cin); w: (K, Cin, Cout) WIO; b/scale/offset: (Cout,).
     Output (B, ceil(T/stride), Cout) in x.dtype. On CUDA: x and w bf16,
-    b/scale/offset fp32, Cout in KERNEL_COUTS.
+    b/scale/offset fp32, Cout in KERNEL_COUTS; the launch is the custom op
+    `torch.ops.drn_tpu_torch.conv_ln_relu`.
     """
     if x.device.type == "cpu":
         return conv_ln_relu_reference(x, w, b, scale, offset, stride,
                                       use_norm, use_act)
+    refuse_grad("conv_ln_relu", x=x, w=w, b=b, scale=scale, offset=offset)
+    return conv_ln_relu_op(x, w, b, scale, offset, stride, use_norm, use_act)
+
+
+conv_ln_relu.launches = 0
+
+
+@torch.library.custom_op("drn_tpu_torch::conv_ln_relu", mutates_args=(),
+                         device_types="cuda")
+def conv_ln_relu_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    scale: torch.Tensor, offset: torch.Tensor, stride: int,
+                    use_norm: bool, use_act: bool) -> torch.Tensor:
+    """The kernel's launch: checks, `conv_plan`, the launch, its count and
+    its FLOPs, all when the op runs (an exported graph holds the op)."""
     bsz, t, cin = x.shape
     k, _, cout = w.shape
     check_cout("conv_ln_relu", cout)
@@ -221,4 +247,7 @@ def conv_ln_relu(x, w, b, scale, offset, stride: int = 1,
     return out
 
 
-conv_ln_relu.launches = 0
+@conv_ln_relu_op.register_fake
+def _(x, w, b, scale, offset, stride, use_norm, use_act):
+    out_t = same_padding(x.shape[1], w.shape[0], stride)[0]
+    return x.new_empty((x.shape[0], out_t, w.shape[2]), dtype=torch.bfloat16)

@@ -26,7 +26,8 @@ from drn_tpu_torch.ops.cuda import _build
 from drn_tpu_torch.ops.cuda.conv_block import (check_cout, check_cuda_inputs,
                                                conv_ln_relu,
                                                conv_ln_relu_reference,
-                                               conv_plan, conv_vjp, stream_of)
+                                               conv_plan, conv_vjp,
+                                               refuse_grad, stream_of)
 from drn_tpu_torch.utils import flops
 
 # csrc/conv_sm90.cuh (kMaxK): a producer thread of the Hadamard variant
@@ -50,7 +51,8 @@ def fused_fusion_reference(v, q, w, b):
 
 def _launch(name, v, q, w, b, **epilogue):
     """Check the inputs, launch `drn_<name>` on conv_plan's split and grid,
-    count the launch and its FLOPs; the (B, T, Dout) bf16 output."""
+    count its FLOPs; the (B, T, Dout) bf16 output. The body of both custom
+    ops, run when the op runs."""
     bsz, t, d = v.shape
     k, _, dout = w.shape
     if k % 2 == 0 or k > MAX_K:
@@ -77,33 +79,67 @@ def _launch(name, v, q, w, b, **epilogue):
     return out
 
 
+def _fake(v, w):
+    return v.new_empty((*v.shape[:2], w.shape[2]), dtype=torch.bfloat16)
+
+
 def fused_fusion_block(v, q, w, b, scale, offset):
     """v: (B, T, D); q: (B, D); w: (K, D, Dout) WIO, K odd;
     b/scale/offset: (Dout,). Output (B, T, Dout) in v.dtype. On CUDA:
-    v, q, w bf16; b, scale, offset fp32; K up to MAX_K."""
+    v, q, w bf16; b, scale, offset fp32; K up to MAX_K; the launch is the
+    custom op `torch.ops.drn_tpu_torch.fused_fusion_block`."""
     if v.device.type == "cpu":
         return fused_fusion_block_reference(v, q, w, b, scale, offset)
+    refuse_grad("fused_fusion_block", v=v, q=q, w=w, b=b, scale=scale,
+                offset=offset)
+    return fused_fusion_block_op(v, q, w, b, scale, offset)
+
+
+fused_fusion_block.launches = 0
+
+
+@torch.library.custom_op("drn_tpu_torch::fused_fusion_block",
+                         mutates_args=(), device_types="cuda")
+def fused_fusion_block_op(v: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                          b: torch.Tensor, scale: torch.Tensor,
+                          offset: torch.Tensor) -> torch.Tensor:
     out = _launch("fused_fusion_block", v, q, w, b, scale=scale,
                   offset=offset)
     fused_fusion_block.launches += 1
     return out
 
 
-fused_fusion_block.launches = 0
+@fused_fusion_block_op.register_fake
+def _(v, q, w, b, scale, offset):
+    return _fake(v, w)
 
 
 def fused_fusion(v, q, w, b):
     """conv1d(v ⊙ q[:, None, :], w, SAME) + b. v: (B, T, D); q: (B, D);
     w: (K, D, Dout) WIO, K odd; b: (Dout,). Output (B, T, Dout) in
-    v.dtype. On CUDA: v, q, w bf16; b fp32; K up to MAX_K."""
+    v.dtype. On CUDA: v, q, w bf16; b fp32; K up to MAX_K; the launch is
+    the custom op `torch.ops.drn_tpu_torch.fused_fusion`."""
     if v.device.type == "cpu":
         return fused_fusion_reference(v, q, w, b)
+    refuse_grad("fused_fusion", v=v, q=q, w=w, b=b)
+    return fused_fusion_op(v, q, w, b)
+
+
+fused_fusion.launches = 0
+
+
+@torch.library.custom_op("drn_tpu_torch::fused_fusion", mutates_args=(),
+                         device_types="cuda")
+def fused_fusion_op(v: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
     out = _launch("fused_fusion", v, q, w, b)
     fused_fusion.launches += 1
     return out
 
 
-fused_fusion.launches = 0
+@fused_fusion_op.register_fake
+def _(v, q, w, b):
+    return _fake(v, w)
 
 
 def fused_fusion_backward(g, v, q, w):

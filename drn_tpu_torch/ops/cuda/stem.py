@@ -27,7 +27,8 @@ import torch
 from drn_tpu_torch.ops.cuda import _build
 from drn_tpu_torch.ops.cuda.conv_block import (check_cuda_inputs,
                                                conv_ln_relu_reference,
-                                               layer_norm, stream_of)
+                                               layer_norm, refuse_grad,
+                                               stream_of)
 from drn_tpu_torch.utils import flops
 
 # csrc/stem_sm90.cuh: the widths it instantiates, its tile, its ring.
@@ -92,17 +93,35 @@ def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
     x: (B, T, Cin) fp32 features, any Cin; w: (K, Cin, Cout) WIO, K odd
     (up to MAX_K on CUDA).
     Output (B, T, Cout) in `cdtype`. On CUDA: cdtype and w bf16, every
-    other input fp32.
+    other input fp32; the launch is the custom op
+    `torch.ops.drn_tpu_torch.fused_stem`.
     """
     if x.device.type == "cpu":
         return fused_stem_reference(x, in_scale, in_bias, w, b, out_scale,
                                     out_bias, cdtype, use_norm, use_act)
+    if cdtype != torch.bfloat16:
+        raise TypeError(f"fused_stem: the kernel computes in bf16, got {cdtype}")
+    refuse_grad("fused_stem", x=x, in_scale=in_scale, in_bias=in_bias, w=w,
+                b=b, out_scale=out_scale, out_bias=out_bias)
+    return fused_stem_op(x, in_scale, in_bias, w, b, out_scale, out_bias,
+                         use_norm, use_act)
+
+
+fused_stem.launches = 0
+
+
+@torch.library.custom_op("drn_tpu_torch::fused_stem", mutates_args=(),
+                         device_types="cuda")
+def fused_stem_op(x: torch.Tensor, in_scale: torch.Tensor,
+                  in_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  out_scale: torch.Tensor, out_bias: torch.Tensor,
+                  use_norm: bool, use_act: bool) -> torch.Tensor:
+    """The kernel's launch: checks, `stem_plan`, the statistics buffer, the
+    launch, its count and its FLOPs, all when the op runs."""
     bsz, t, cin = x.shape
     k, _, cout = w.shape
     if k % 2 == 0:
         raise ValueError(f"fused_stem: odd kernel width needed, got {k}")
-    if cdtype != torch.bfloat16:
-        raise TypeError(f"fused_stem: the kernel computes in bf16, got {cdtype}")
     plan = stem_plan(bsz * t, cin, cout, k, torch.cuda.get_device_properties(
         x.device).multi_processor_count)
     check_cuda_inputs(
@@ -130,4 +149,6 @@ def fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
     return out
 
 
-fused_stem.launches = 0
+@fused_stem_op.register_fake
+def _(x, in_scale, in_bias, w, b, out_scale, out_bias, use_norm, use_act):
+    return x.new_empty((*x.shape[:2], w.shape[2]), dtype=torch.bfloat16)

@@ -603,3 +603,170 @@ def test_glove_train_on_the_card_keeps_the_embedding(dev, tmp_path):
                        pretrained_embeddings=vocab.embeddings).state_dict()
     assert not torch.equal(sd["stem.conv.weight"].cpu(),
                            init["stem.conv.weight"])
+
+
+# --- the kernels as custom ops, the exported step, the server -----------
+
+
+def _direct(name, args):
+    """`name`'s kernel launched straight through its C entry point, with
+    the wrapper's plan, bypassing the custom op."""
+    from drn_tpu_torch.ops.cuda import _build
+    from drn_tpu_torch.ops.cuda.conv_block import same_padding, stream_of
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if name == "conv_ln_relu":
+        x, w, b, s, o, stride, use_norm, use_act = args
+        (bsz, t, cin), (k, _, cout) = x.shape, w.shape
+        out_t, left, _ = same_padding(t, k, stride)
+        out = torch.empty((bsz, out_t, cout), dtype=torch.bfloat16,
+                          device=x.device)
+        fn = _build.entry("conv_block", "drn_conv_ln_relu", 6, 12)
+        rc = fn(*[a.data_ptr() for a in (x, w, b, s, o, out)], bsz, t, cin,
+                cout, k, stride, out_t, left, int(use_norm), int(use_act),
+                *conv_plan(bsz * out_t, cout, sms), stream_of(x))
+    elif name == "fused_stem":
+        x, si, bi, w, b, s, o = args[:7]
+        (bsz, t, cin), (k, _, cout) = x.shape, w.shape
+        stats = torch.empty((bsz * t, 2), dtype=torch.float32,
+                            device=x.device)
+        out = torch.empty((bsz, t, cout), dtype=torch.bfloat16,
+                          device=x.device)
+        fn = _build.entry("stem", "drn_fused_stem", 9, 13)
+        rc = fn(*[a.data_ptr() for a in (x, si, bi, w, b, s, o, stats, out)],
+                bsz, t, cin, cout, k, 1, 1,
+                *stem_plan(bsz * t, cin, cout, k, sms), stream_of(x))
+    else:  # fused_fusion_block / fused_fusion
+        v, q, w = args[:3]
+        (bsz, t, d), (k, _, dout) = v.shape, w.shape
+        out = torch.empty((bsz, t, dout), dtype=torch.bfloat16,
+                          device=v.device)
+        ptrs = [a.data_ptr() for a in (*args, out)]
+        fn = _build.entry("fused_fusion", "drn_" + name, len(ptrs), 7)
+        rc = fn(*ptrs, bsz, t, d, dout, k, *conv_plan(bsz * t, dout, sms),
+                stream_of(v))
+    assert rc == 0
+    return out
+
+
+def test_custom_ops_equal_their_direct_launches(dev):
+    """Each kernel through its custom op (the wrapper) and through its
+    autograd Function gives its direct launch's output bit for bit; the
+    Function's backward recomputes through the op (its launches count)."""
+    from drn_tpu_torch.ops.cuda import fused_fusion as ff
+
+    x, v = _randn(dev, 3, 57, 128), _randn(dev, 3, 64, 512, seed=8)
+    q = _randn(dev, 3, 512, scale=0.5, seed=5)
+    w = _randn(dev, 3, 128, 512, scale=0.05, seed=4)
+    wf = _randn(dev, 3, 512, 512, scale=0.03, seed=6)
+    epi = _epilogue(dev, 512)
+    xs = _randn(dev, 3, 57, 128, dtype=torch.float32, seed=7)
+    si, bi = 1.0 + 0.1 * xs[0, :1, :].flatten(), 0.1 * xs[1, :1, :].flatten()
+    # name → (args, wrapper, Function, the launches of its backward)
+    cases = {
+        "conv_ln_relu": ((x, w, *epi, 2, True, True), conv_ln_relu,
+                         ConvLnReluFn, {"conv_ln_relu": 1}),
+        "fused_stem": ((xs, si, bi, w, *epi), fused_stem, FusedStemFn,
+                       {"fused_stem": 1}),
+        "fused_fusion_block": ((v, q, wf, *epi), fused_fusion_block,
+                               FusedFusionBlockFn,
+                               {"fused_fusion": 1, "conv_ln_relu": 1}),
+        "fused_fusion": ((v, q, wf, epi[0]), ff.fused_fusion, FusedFusionFn,
+                         {"conv_ln_relu": 1}),
+    }
+    for name, (args, wrapper, fn, backward) in cases.items():
+        want = _direct(name, args)
+        with torch.no_grad():
+            assert torch.equal(wrapper(*args), want), name
+        leaves = [a.detach().clone().requires_grad_(a.is_floating_point())
+                  if torch.is_tensor(a) else a for a in args]
+        out = fn.apply(*leaves)
+        assert torch.equal(out.detach(), want), name
+        before = launch_counts()
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert {k: n - before[k] for k, n in launch_counts().items()
+                if n != before[k]} == backward, name
+        assert all(torch.isfinite(a.grad).all() for a in leaves
+                   if torch.is_tensor(a) and a.grad is not None), name
+
+
+def test_exported_cuda_step_equals_the_live_step(dev, tmp_path):
+    from collections import Counter
+
+    from drn_tpu_torch import export
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.evaluate import build_model
+    from drn_tpu_torch.probes.export_roundtrip import make_batch
+
+    cfg = get_config("synthetic_tiny")
+    model = build_model(cfg, seed=3)
+    ep, sidecar = export.export_eval_step(cfg, model, 8)
+    nodes = Counter(str(n.target) for n in ep.graph.nodes
+                    if str(n.target).startswith("drn_tpu_torch."))
+    m = cfg.model
+    assert nodes == {
+        "drn_tpu_torch.fused_stem.default": 1,
+        "drn_tpu_torch.fused_fusion_block.default": m.num_levels,
+        "drn_tpu_torch.conv_ln_relu.default": 3 * m.num_levels
+        + 2 * m.head_tower_layers + m.iou_head_layers}
+    path = str(tmp_path / "drn.pt2")
+    export.save_exported(ep, sidecar, path)
+    call, sidecar = export.load_exported(path)
+    assert sidecar["device"].startswith("cuda")
+    batch = {k: torch.as_tensor(a, device=dev) for k, a in make_batch(
+        export.batch_spec(cfg, 8), m.vocab_size).items()}
+    for seed in (3, 4):
+        live = build_model(cfg, seed=seed)
+        want = export.EvalStep(cfg, live)(**batch)
+        before = launch_counts()["fused_stem"]
+        got = call(live.state_dict(), batch)
+        assert launch_counts()["fused_stem"] == before + 1
+        for k in ("segments_seconds", "nms_keep", "scores", "n_valid"):
+            assert torch.equal(got[k], want[k]), (seed, k)
+        assert {k: v.item() for k, v in got["recall_counts"].items()} == \
+            {k: v.item() for k, v in want["recall_counts"].items()}
+
+
+def test_a_served_request_runs_on_the_batcher_thread(dev, monkeypatch):
+    """The server's kernels launch from its batcher thread, and the answer
+    equals `predict` on the padded batch the service builds."""
+    import json
+    import threading
+    import urllib.request
+
+    from drn_tpu_torch import serve
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.evaluate import predict
+    from drn_tpu_torch.ops.cuda import conv_block, fused_fusion, stem
+
+    service = serve.build_service(get_config("synthetic_tiny"), top=3)
+    service.start()
+    threads = []
+    for mod in (conv_block, fused_fusion, stem):
+        real = mod.stream_of
+        monkeypatch.setattr(mod, "stream_of", lambda t, real=real: (
+            threads.append(threading.get_ident()), real(t))[1])
+    httpd = serve.GroundingHTTPServer(("127.0.0.1", 0),
+                                      serve.make_handler(service))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    payload = {"query": "a person opens the door", "duration": 20.0,
+               "features": np.random.default_rng(0).standard_normal(
+                   (40, 128)).tolist()}
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/ground",
+            data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = json.loads(r.read())
+        assert threads and set(threads) == {service._thread.ident}
+    finally:
+        httpd.shutdown()
+        service.stop()
+    segs, keep, scores = predict(service.cfg, service.model,
+                                 service.padded_batch(
+                                     [service.prepare(payload)]))
+    kept = [j for j in range(segs.shape[1]) if keep[0, j]][:3]
+    assert got == {"segments": [[float(segs[0, j, 0]), float(segs[0, j, 1])]
+                                for j in kept],
+                   "scores": [float(scores[0, j]) for j in kept]}

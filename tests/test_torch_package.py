@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_drn_tpu():
     """Import every port module and chip_smoke in a fresh interpreter;
     no jax/flax/optax/orbax or drn_tpu module may be loaded, and every
     module of the port (the native reader's binding, infer, the data
-    layer included) must have been imported."""
+    layer, serve, export and their probes included) must have been
+    imported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import drn_tpu_torch, chip_smoke\n"
@@ -69,7 +70,9 @@ def test_port_imports_no_jax_and_nothing_of_drn_tpu():
     assert {"drn_tpu_torch.native", "drn_tpu_torch.infer",
             "drn_tpu_torch.data.validate", "drn_tpu_torch.data.staging",
             "drn_tpu_torch.data.datasets", "drn_tpu_torch.data.features",
-            "drn_tpu_torch.data.vocab"} <= set(PORT_MODULES)
+            "drn_tpu_torch.data.vocab", "drn_tpu_torch.serve",
+            "drn_tpu_torch.export", "drn_tpu_torch.probes.serve_load",
+            "drn_tpu_torch.probes.export_roundtrip"} <= set(PORT_MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
