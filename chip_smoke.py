@@ -87,6 +87,27 @@ non-zero exit code:
               weights and with a second seed's passed as `params`; the
               live step's and the artifact's host-clock step times, in
               turns in this process.
+  9. checkpoint  checkpoint directories end to end on the `dataset`
+              phase's corpus (written again from its seed) at
+              charades_c3d's full width in GloVe mode, B=48 (8 steps an
+              epoch): the train step's ms and examples/s fed in process
+              and by 2 worker processes (15 steps each, streamed), and
+              its parts (a batch built in process, the step on a batch on
+              the card, the batch's copy); then
+              three children of the train CLI on the card with
+              --num-workers 2: (a) 6 steps; (b) the same, sent SIGTERM
+              after its step-3 line, which must exit 75 with the step it
+              logged as preempted saved; (c) the same command again, which
+              must resume there, exit 0 and log (a)'s losses within
+              TRAIN_LOSS_RTOL and end on (a)'s parameters within
+              RESUME_PARAM_REL (relative L2); the seconds from (c)'s start
+              to its first step and each child's wall time. Then the
+              readers of (a)'s directory against its 6.pth: `evaluate`
+              (with and without --latest-checkpoint: the same printout),
+              `serve.build_service` (bit-equal answers), `export` (outputs
+              bit-equal) and `infer` (the same top segments). The four
+              package kernels launch in this phase's own steps and in
+              every child (each child prints its launch counts).
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -141,6 +162,15 @@ MAIN_TOL = {"match_logits": (0.05, 0.05), "iou_logits": (0.05, 0.05),
 # card's summation order.
 TRAIN_LOSS_RTOL = 0.02
 TRAIN_GRAD_REL = 0.08
+# A resumed run against the uninterrupted one: the same batches from the
+# same state, so only the order of the card's floating-point sums may
+# differ (cuDNN's LSTM backward is not bit-deterministic); Adam's first
+# steps move each weight by about lr, so after 2 or 3 steps the relative
+# L2 distance of all parameters stays far below 1e-3.
+RESUME_PARAM_REL = 1e-3
+# The checkpoint phase: training batch (8 steps an epoch of the corpus's
+# 384 examples), steps, the step after which (b) is sent SIGTERM.
+CK_BATCH, CK_STEPS, CK_SIGTERM_AFTER = 48, 6, 3
 
 CONFIG = "charades_c3d_batched_eval"
 EXAMPLES = 120  # 48 + 48 + 24: three eval steps, the last one padded
@@ -1004,6 +1034,280 @@ def export_phase(cfg, dev):
         device=torch.cuda.get_device_name(0))
 
 
+# The train CLI in a child, with one config override the CLI has no flag
+# for (a step-by-step log); the child's launch counts on its last line.
+CK_CHILD = """
+import time
+t0 = time.perf_counter()
+import dataclasses, json, sys
+import drn_tpu_torch.train as t
+print(json.dumps({"imported_s": time.perf_counter() - t0}), file=sys.stderr,
+      flush=True)
+from drn_tpu_torch.ops.cuda import launch_counts
+real = t.get_config
+t.get_config = lambda n: (lambda c: c.replace(train=dataclasses.replace(
+    c.train, log_every_steps=1)))(real(n))
+try:
+    t.main(sys.argv[1:])
+finally:
+    print(json.dumps({"launches": launch_counts()}), file=sys.stderr,
+          flush=True)
+"""
+PACKAGE_KERNELS = ("fused_stem", "fused_fusion_block", "conv_ln_relu",
+                   "fused_fusion")
+
+
+def _train_child(args, sigterm_after=None):
+    """Run the train CLI child to its end → (exit code, {step: loss}, the
+    preempted step or None, launches, wall s, s to the first step line,
+    stderr). With `sigterm_after`, SIGTERM follows that step's line."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-c", CK_CHILD, *args],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    losses, preempted, launches, first, lines = {}, None, None, None, []
+    imported = in_train = None
+    try:
+        for line in proc.stderr:
+            lines.append(line)
+            if not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            if "launches" in rec:
+                launches = rec["launches"]
+            elif "imported_s" in rec:
+                imported = rec["imported_s"]
+            elif "loss" in rec:
+                if first is None:
+                    first, in_train = time.perf_counter() - t0, rec["t"]
+                losses[rec["step"]] = rec["loss"]
+                if rec["step"] == sigterm_after:
+                    proc.send_signal(signal.SIGTERM)
+            elif "preempted" in rec:
+                preempted = rec["step"]
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    return dict(rc=rc, losses=losses, preempted=preempted, launches=launches,
+                wall_s=time.perf_counter() - t0, first_step_s=first,
+                imported_s=imported, train_to_first_step_s=in_train,
+                stderr="".join(lines[-30:]))
+
+
+def checkpoint_phase(dev):
+    """Checkpoint directories end to end; see the module's docstring."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from drn_tpu_torch import evaluate as port_eval
+    from drn_tpu_torch import export, infer, serve
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.data.pipeline import (build_vocab, make_batch_iterator,
+                                             make_dataset)
+    from drn_tpu_torch.evaluate import build_model, to_device
+    from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from drn_tpu_torch.train import make_optimizer, make_train_step
+    from drn_tpu_torch.utils.profiling import host_ms
+
+    base = get_config("charades_c3d")
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="drn_ckpt_") as root:
+        fields = write_corpus(root, base.model.feature_dim)
+        cfg = base.replace(data=dataclasses.replace(
+            base.data, **fields, batch_size=CK_BATCH))
+        vocab = build_vocab(cfg.data, cfg.model)
+        ds = make_dataset(cfg.data, cfg.model, vocab, split="train")
+        steps_per_epoch = -(-len(ds) // CK_BATCH)
+        if steps_per_epoch < 8:
+            raise AssertionError(f"{steps_per_epoch} steps an epoch")
+
+        # The train step fed in process and by 2 workers, streamed.
+        reset_launch_counts()
+        model = build_model(cfg, device=dev, seed=0,
+                            pretrained_embeddings=vocab.embeddings).train()
+        step = make_train_step(cfg, model, make_optimizer(
+            cfg, steps_per_epoch, model))
+        feed = {}
+        for workers in (0, 2):
+            batches = make_batch_iterator(
+                ds, dataclasses.replace(cfg.data, num_workers=workers),
+                shuffle=True, seed=0, pin_memory=True)
+            t0 = time.perf_counter()
+            it = itertools.chain(batches.epoch(0), batches.epoch(1))
+            first = to_device(next(it), dev)  # the pool's start
+            first_batch_s = time.perf_counter() - t0
+            step(first)  # warm-up
+            torch.cuda.synchronize()
+            t0, n = time.perf_counter(), 0
+            for batch in it:  # the rest of two epochs
+                step(to_device(batch, dev))
+                n += 1
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / n
+            batches.close()
+            feed[f"workers_{workers}"] = dict(
+                step_ms=ms, examples_per_s=CK_BATCH / ms * 1e3,
+                first_batch_s=first_batch_s)
+        # Its two parts alone: building a batch in process, and the step
+        # (with its copy) on one batch on the card.
+        it = make_batch_iterator(ds, cfg.data, shuffle=True,
+                                 seed=1).epoch(0)
+        t0 = time.perf_counter()
+        host = [next(it) for _ in range(3)]
+        feed["batch_build_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+        feed["resident_step_ms"] = host_ms(lambda: step(first), 3)
+        feed["copy_ms"] = host_ms(lambda: to_device(host[0], dev), 3)
+        del host, first
+        own = launch_counts()
+        del model, step
+
+        # (a) uninterrupted, (b) SIGTERM'd, (c) (b) again: a resume.
+        def args(d):
+            return ["--config", base.name, "--feature-dir",
+                    fields["feature_dir"], "--annotation-path",
+                    fields["annotation_path"], "--glove-path",
+                    fields["glove_path"], "--feature-fps", str(DS_FPS),
+                    "--batch-size", str(CK_BATCH), "--num-workers", "2",
+                    "--max-steps", str(CK_STEPS), "--checkpoint-dir",
+                    os.path.join(root, d)]
+
+        runs = {"a": _train_child(args("a")),
+                "b": _train_child(args("b"), sigterm_after=CK_SIGTERM_AFTER),
+                "c": _train_child(args("b"))}
+        for name, r in runs.items():
+            want_rc = 75 if name == "b" else 0
+            if r["rc"] != want_rc or not r["launches"] or not all(
+                    r["launches"][k] for k in PACKAGE_KERNELS):
+                raise AssertionError(f"child ({name}) exited {r['rc']} "
+                                     f"(expected {want_rc}), launches "
+                                     f"{r['launches']}:\n{r['stderr']}")
+        a_dir = os.path.join(root, "a", base.name, "stage1")
+        b_dir = os.path.join(root, "b", base.name, "stage1")
+        s = runs["b"]["preempted"]
+        if s is None or s < CK_SIGTERM_AFTER or not os.path.exists(
+                os.path.join(b_dir, f"{s}.pth")):
+            raise AssertionError(f"(b) preempted at {s}; its directory "
+                                 f"holds {sorted(os.listdir(b_dir))}")
+        resumed = runs["c"]["losses"]
+        if sorted(resumed) != list(range(s + 1, CK_STEPS + 1)):
+            raise AssertionError(f"(c) logged steps {sorted(resumed)} after "
+                                 f"a preemption at {s}")
+        loss_rel = {k: abs(v - runs["a"]["losses"][k])
+                    / abs(runs["a"]["losses"][k]) for k, v in resumed.items()}
+        if max(loss_rel.values()) > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"resumed losses vs uninterrupted: "
+                                 f"{loss_rel}")
+        load = lambda d: torch.load(os.path.join(d, f"{CK_STEPS}.pth"),
+                                    weights_only=True)["model"]
+        pa, pc = load(a_dir), load(b_dir)
+        diff = math.sqrt(sum(float((pc[k] - v).double().pow(2).sum())
+                             for k, v in pa.items()))
+        norm = math.sqrt(sum(float(v.double().pow(2).sum())
+                             for v in pa.values()))
+        if diff / norm > RESUME_PARAM_REL:
+            raise AssertionError(f"resumed parameters: relative L2 "
+                                 f"{diff / norm}")
+
+        # The readers of (a)'s directory against its last step file.
+        pth = os.path.join(a_dir, f"{CK_STEPS}.pth")
+        data_args = ["--annotation-path", fields["annotation_path"],
+                     "--glove-path", fields["glove_path"]]
+        ev = ["--config", base.name, "--feature-dir", fields["feature_dir"],
+              *data_args]
+        printed = {}
+        for name, extra in (("pth", ["--torch-checkpoint", pth]),
+                            ("dir", ["--checkpoint-dir", a_dir]),
+                            ("latest", ["--checkpoint-dir", a_dir,
+                                        "--latest-checkpoint"])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                port_eval.main(ev + extra)
+            printed[name] = out.getvalue()
+        if not (printed["pth"] == printed["dir"] == printed["latest"]) or \
+                len(printed["pth"].splitlines()) != 7:
+            raise AssertionError(f"evaluate printouts differ: {printed}")
+
+        scfg = cfg.replace(eval=dataclasses.replace(cfg.eval, batch_size=8))
+        services = [serve.build_service(scfg, device=dev, top=5,
+                                        features_root=fields["feature_dir"],
+                                        **src)
+                    for src in ({"checkpoint_dir": a_dir},
+                                {"torch_checkpoint": pth})]
+        reqs = [{"query": q, "features_path": os.path.join(
+            fields["feature_dir"], f"V{v:04d}.npy")}
+                for v, q in ((3, "A person opens the door."),
+                             (7, "Someone takes a cup from the table."))]
+        answers = [svc._run([svc.prepare(r) for r in reqs])
+                   for svc in services]
+        if answers[0] != answers[1] or not all(a["segments"]
+                                               for a in answers[0]):
+            raise AssertionError(f"serve answers differ: {answers}")
+
+        outs = {}
+        for name, extra in (("dir", ["--checkpoint-dir", a_dir]),
+                            ("pth", ["--torch-checkpoint", pth])):
+            path = os.path.join(root, f"{name}.pt2")
+            with contextlib.redirect_stdout(io.StringIO()):
+                export.main(["--config", base.name, "--batch-size", "8",
+                             "--out", path, *data_args, *extra])
+            call, _ = export.load_exported(path)
+            rng = np.random.default_rng(3)
+            spec = export.batch_spec(cfg, 8)
+            batch = {
+                "features": rng.standard_normal(
+                    spec["features"].shape, dtype=np.float32),
+                "word_ids": rng.integers(0, vocab.size,
+                                         spec["word_ids"].shape).astype(
+                                             np.int32),
+                "query_mask": np.ones(spec["query_mask"].shape, bool),
+                "gt_grid": np.tile(np.float32([[5.0, 20.0]]), (8, 1)),
+                "duration": np.full((8,), 30.0, np.float32),
+                "valid": np.ones((8,), bool)}
+            outs[name] = call(None, batch)
+        for k in ("segments_seconds", "nms_keep", "scores", "n_valid"):
+            if not torch.equal(outs["dir"][k], outs["pth"][k]):
+                raise AssertionError(f"export from the directory: {k} "
+                                     "differs")
+
+        inf = {}
+        for name, extra in (("dir", ["--checkpoint-dir", a_dir]),
+                            ("pth", ["--torch-checkpoint", pth])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                infer.main(["--config", base.name, "--features",
+                            os.path.join(fields["feature_dir"], "V0007.npy"),
+                            "--feature-fps", str(DS_FPS), "--query",
+                            "A person opens the door then sits.",
+                            *data_args, *extra])
+            inf[name] = out.getvalue()
+        if inf["dir"] != inf["pth"] or "score=" not in inf["dir"]:
+            raise AssertionError(f"infer printouts differ: {inf}")
+
+    return dict(
+        phase="checkpoint", config=base.name, dataset="charades",
+        glove=True, batch_size=CK_BATCH, steps_per_epoch=steps_per_epoch,
+        steps=CK_STEPS, feed=feed, launches=own,
+        children={k: {f: r[f] for f in ("rc", "wall_s", "first_step_s",
+                                         "imported_s",
+                                         "train_to_first_step_s",
+                                         "preempted", "launches")}
+                  for k, r in runs.items()},
+        preempted_at=s, resume_first_step_s=runs["c"]["first_step_s"],
+        losses={k: r["losses"] for k, r in runs.items()},
+        resumed_loss_rel=max(loss_rel.values()),
+        resumed_param_rel_l2=diff / norm,
+        readers_equal=dict(evaluate=True, serve=True, export=True,
+                           infer=True),
+        phase_s=time.perf_counter() - phase_t0,
+        device=torch.cuda.get_device_name(0))
+
+
 def main() -> int:
     import torch
 
@@ -1043,6 +1347,7 @@ def main() -> int:
     emit(dataset_phase(base, dev))
     emit(serve_phase(base, dev))
     emit(export_phase(base, dev))
+    emit(checkpoint_phase(dev))
     # Each kernel's launches on its main path: the eval step's kernels in
     # the `main` run, `fused_fusion` (backward only) in the `train` run,
     # `pallas_block` in the `probe` run.

@@ -1,2 +1,2 @@
-"""Host data layer of the port (own copies; the JAX package's readers of
-real datasets are not ported yet)."""
+"""Host data layer of the port (own copies of drn_tpu/data/): vocab,
+feature readers, the dataset loaders, staging, validation and batching."""

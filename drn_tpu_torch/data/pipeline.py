@@ -1,13 +1,17 @@
 """The run's vocabulary, datasets and host batching (own copies of
-`build_vocab`, `make_dataset`, `BatchIterator` and `_pad_batch_rows` from
-drn_tpu/data/pipeline.py): fixed-size batches, the ragged last one padded
-and masked via `valid`. Padded rows keep query_mask[:, 0] = True (LSTM
-lengths >= 1) and gt_grid = [0, 1]. Batches are built in process: worker
-processes (`data.num_workers > 0`) are refused by the entry points."""
+`build_vocab`, `make_dataset`, `BatchIterator`, `make_batch_iterator` and
+`_pad_batch_rows` from drn_tpu/data/pipeline.py): fixed-size batches, the
+ragged last one padded and masked via `valid`. Padded rows keep
+query_mask[:, 0] = True (LSTM lengths >= 1) and gt_grid = [0, 1].
+
+`data.num_workers > 0` builds the batches in worker processes
+(`WorkerBatchIterator`, in place of the JAX package's Grain loader); the
+batches are the in-process iterator's, one for one.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -60,6 +64,23 @@ def _pad_batch_rows(batch: Dict[str, np.ndarray], batch_size: int
     return out
 
 
+def epoch_order(n: int, shuffle: bool, seed: int, epoch_idx: int
+                ) -> np.ndarray:
+    """The example order of an epoch: a function of (seed, epoch) alone."""
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed + epoch_idx).shuffle(idx)
+    return idx
+
+
+def collate(dataset, indices, batch_size: int) -> Dict[str, np.ndarray]:
+    """The batch of `dataset`'s examples `indices`, padded to
+    `batch_size`."""
+    rows = [dataset[int(i)] for i in indices]
+    batch = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+    return _pad_batch_rows(batch, batch_size)
+
+
 class BatchIterator:
     """Deterministic epoch iterator over a dataset of example dicts."""
 
@@ -75,15 +96,131 @@ class BatchIterator:
         n, b = len(self.dataset), self.batch_size
         return n // b if self.drop_remainder else -(-n // b)
 
-    def epoch(self, epoch_idx: int = 0, skip_batches: int = 0
-              ) -> Iterator[Dict[str, np.ndarray]]:
-        n = len(self.dataset)
-        idx = np.arange(n)
-        if self.shuffle:
-            np.random.default_rng(self.seed + epoch_idx).shuffle(idx)
-        b = self.batch_size
+    def batch_indices(self, epoch_idx: int = 0, skip_batches: int = 0
+                      ) -> Iterator[List[int]]:
+        """The example indices of each batch of the epoch, from batch
+        `skip_batches` on."""
+        n, b = len(self.dataset), self.batch_size
+        idx = epoch_order(n, self.shuffle, self.seed, epoch_idx)
         stop = (n // b) * b if self.drop_remainder else n
         for off in range(skip_batches * b, stop, b):
-            rows = [self.dataset[int(i)] for i in idx[off:off + b]]
-            batch = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
-            yield _pad_batch_rows(batch, b)
+            yield idx[off:off + b].tolist()
+
+    def epoch(self, epoch_idx: int = 0, skip_batches: int = 0
+              ) -> Iterator[Dict[str, np.ndarray]]:
+        for indices in self.batch_indices(epoch_idx, skip_batches):
+            yield collate(self.dataset, indices, self.batch_size)
+
+    def start(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class _EpochSampler:
+    """The batch sampler of a WorkerBatchIterator: the index lists of
+    `BatchIterator.batch_indices` for the epoch and skip last set."""
+
+    def __init__(self, order: BatchIterator):
+        self.order = order
+        self.epoch_idx, self.skip = 0, 0
+        self.idle = False  # yields nothing: the pool starts, reads nothing
+
+    def __iter__(self):
+        if self.idle:
+            return iter(())
+        return self.order.batch_indices(self.epoch_idx, self.skip)
+
+
+class _Batches:
+    """The map-style dataset the workers index: a list of example indices
+    → that batch, padded (numpy; the loader hands it over as tensors in
+    shared memory)."""
+
+    def __init__(self, dataset, batch_size: int):
+        self.dataset = dataset
+        self.batch_size = batch_size
+
+    def __getitem__(self, indices: List[int]) -> Dict[str, np.ndarray]:
+        return collate(self.dataset, indices, self.batch_size)
+
+
+class WorkerBatchIterator(BatchIterator):
+    """BatchIterator's batches, built in `num_workers` worker processes
+    (torch.utils.data.DataLoader over a batch sampler).
+
+    The sampler yields exactly `BatchIterator.batch_indices`: the same
+    `default_rng(seed + epoch)` order, the same slices, the same padding.
+    Because the order is a function of (seed, epoch) alone, a mid-epoch
+    resume (`epoch(e, skip_batches=k)`) starts the sampler at batch k: no
+    worker reads a consumed example, and no loader state needs saving
+    beside the checkpoint. (The JAX package saves Grain's iterator state
+    in `loader_state/` blobs, because Grain's order lives in its
+    samplers.)
+
+    Workers are started with "spawn" (by `start()`, or by the first
+    epoch) and kept for the iterator's life (`close()` stops them); a
+    caller that starts them early overlaps their start (an interpreter
+    and torch each) with its own set-up. Nothing of the parent crosses
+    but the pickled dataset (a FeatureReader drops its cache and HDF5
+    handle on pickling; the native reader is loaded anew in each worker),
+    so no CUDA context and no open handle is inherited. Workers return numpy batches, which
+    the loader moves through shared memory; with `pin_memory` the main
+    process pins them before they are yielded, ready for the copy to the
+    card. Batches are yielded as numpy arrays, as BatchIterator's are.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, drop_remainder: bool = False,
+                 num_workers: int = 2, pin_memory: bool = False):
+        super().__init__(dataset, batch_size, shuffle, seed, drop_remainder)
+        if num_workers < 1:
+            raise ValueError(f"num_workers={num_workers}: use BatchIterator")
+        self.num_workers = num_workers
+        self.pin_memory = pin_memory
+        self._sampler = _EpochSampler(self)
+        self._loader = None
+
+    def start(self) -> None:
+        """Start the worker processes, without waiting for them and
+        without reading anything."""
+        if self._loader is not None:
+            return
+        from torch.utils.data import DataLoader
+
+        self._loader = DataLoader(
+            _Batches(self.dataset, self.batch_size), batch_size=None,
+            sampler=self._sampler, num_workers=self.num_workers,
+            pin_memory=self.pin_memory, persistent_workers=True,
+            multiprocessing_context="spawn")
+        self._sampler.idle = True
+        iter(self._loader)  # spawns the pool; the idle sampler asks nothing
+        self._sampler.idle = False
+
+    def epoch(self, epoch_idx: int = 0, skip_batches: int = 0
+              ) -> Iterator[Dict[str, np.ndarray]]:
+        self.start()
+        self._sampler.epoch_idx, self._sampler.skip = epoch_idx, skip_batches
+        for batch in self._loader:
+            yield {k: v.numpy() for k, v in batch.items()}
+
+    def close(self) -> None:
+        """Stop the worker processes (a later epoch starts new ones)."""
+        it = getattr(self._loader, "_iterator", None)
+        if it is not None:
+            it._shutdown_workers()
+        self._loader = None
+
+
+def make_batch_iterator(dataset, cfg: DataConfig, *, shuffle: bool,
+                        seed: int, batch_size: Optional[int] = None,
+                        pin_memory: bool = False) -> BatchIterator:
+    """Worker processes when `cfg.num_workers > 0`, in process otherwise;
+    the same batches either way. `batch_size` defaults to the config's."""
+    b = batch_size or cfg.batch_size
+    if cfg.num_workers > 0:
+        return WorkerBatchIterator(dataset, b, shuffle=shuffle, seed=seed,
+                                   num_workers=cfg.num_workers,
+                                   pin_memory=pin_memory)
+    return BatchIterator(dataset, b, shuffle=shuffle, seed=seed)

@@ -8,11 +8,16 @@ asked for they raise instead of running on the CPU.
 
 `evaluate(..., device_features=True)` stages each unique video's grid in
 one table on the evaluation's device (data/staging.py) and the step
-gathers its batch from it.
+gathers its batch from it. `data.num_workers > 0` builds the batches in
+worker processes (data/pipeline.py::WorkerBatchIterator); the metrics are
+the same.
 
-Out of scope, and refused rather than ignored: Orbax checkpoints
-(`--checkpoint-dir`), multi-process runs, a device mesh and worker
-processes for IO (ROADMAP.md queues each).
+`--checkpoint-dir` reads a directory the port's trainer wrote (its
+`best/` first unless `--latest-checkpoint`); an Orbax directory is refused
+with the name of its converter, tools/orbax_to_pth.py.
+
+Out of scope, and refused rather than ignored: multi-process runs and a
+device mesh (ROADMAP.md, multi-GPU).
 """
 
 from __future__ import annotations
@@ -27,12 +32,13 @@ import torch
 
 from drn_tpu_torch.config import ExperimentConfig, get_config
 from drn_tpu_torch.convert import load_torch_checkpoint
-from drn_tpu_torch.data.pipeline import (BatchIterator, build_vocab,
+from drn_tpu_torch.data.pipeline import (build_vocab, make_batch_iterator,
                                          make_dataset)
 from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.layers import KERNEL_OPS, Ops
 from drn_tpu_torch.ops.metrics import metric_name, recall_at_n
 from drn_tpu_torch.ops.nms import batched_temporal_nms
+from drn_tpu_torch.utils.checkpoint import restore_params
 
 
 def resolve_device(device=None) -> torch.device:
@@ -146,9 +152,6 @@ def _refuse_out_of_scope(cfg: ExperimentConfig, mesh, device_features) -> None:
         raise ValueError("device_features reads per-video feature files; "
                          "the synthetic fixture generates features in "
                          "memory")
-    if cfg.data.num_workers > 0:
-        raise NotImplementedError("data.num_workers > 0: the port batches in "
-                                  "process only (ROADMAP.md)")
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError("multi-process evaluation is not ported "
@@ -180,17 +183,22 @@ def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
     table = None
     if device_features:
         table, dataset = stage_on_device(dataset, dev)
-    batches = BatchIterator(dataset, cfg.eval.batch_size, shuffle=False, seed=0)
+    batches = make_batch_iterator(dataset, cfg.data, shuffle=False, seed=0,
+                                  batch_size=cfg.eval.batch_size,
+                                  pin_memory=dev.type == "cuda")
     step = make_eval_step(cfg, model)
     totals: Optional[Dict] = None
     n_total = None
-    for batch in batches.epoch(0):
-        counts, n_valid, *_ = step(to_device(batch, dev), table)
-        if totals is None:
-            totals, n_total = counts, n_valid
-        else:
-            totals = {k: totals[k] + v for k, v in counts.items()}
-            n_total = n_total + n_valid
+    try:
+        for batch in batches.epoch(0):
+            counts, n_valid, *_ = step(to_device(batch, dev), table)
+            if totals is None:
+                totals, n_total = counts, n_valid
+            else:
+                totals = {k: totals[k] + v for k, v in counts.items()}
+                n_total = n_total + n_valid
+    finally:
+        batches.close()
     if totals is None:
         return {}
     n = float(n_total)  # the one device→host fetch of the loop
@@ -215,6 +223,19 @@ def predict(cfg: ExperimentConfig, model: DRN, batch: Dict[str, np.ndarray],
     return segs.cpu().numpy(), keep.cpu().numpy(), scores.cpu().numpy()
 
 
+def load_params(args, cfg: ExperimentConfig, *, context: str,
+                prefer_best: bool = True) -> Dict[str, torch.Tensor]:
+    """The parity-schema state_dict a reading CLI was given:
+    `args.torch_checkpoint`, or the params of `args.checkpoint_dir`
+    (`utils.checkpoint.restore_params`: the config check, then `best/`
+    when `prefer_best` and it holds a step, else the latest step)."""
+    if args.torch_checkpoint:
+        return load_torch_checkpoint(args.torch_checkpoint)
+    return restore_params(
+        args.checkpoint_dir, cfg, prefer_best=prefer_best, context=context,
+        allow_config_mismatch=getattr(args, "allow_config_mismatch", False))
+
+
 _DATA_FLAGS = ("feature_dir", "annotation_path", "glove_path", "feature_fps",
                "num_workers")
 
@@ -231,13 +252,23 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="drn_tpu_torch evaluator")
     p.add_argument("--config", default="charades_c3d")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="Orbax checkpoint directory (not supported yet)")
+                   help="a directory the port's trainer wrote (or "
+                        "tools/orbax_to_pth.py converted)")
     p.add_argument("--torch-checkpoint", default=None,
                    help=".pth in the parity schema")
     p.add_argument("--split", default="test")
     p.add_argument("--feature-dir", default=None)
     p.add_argument("--annotation-path", default=None)
     p.add_argument("--glove-path", default=None)
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="worker processes that build the batches")
+    p.add_argument("--latest-checkpoint", action="store_true",
+                   help="restore the latest step instead of the "
+                        "best-on-val checkpoint (the default when "
+                        "<checkpoint-dir>/best exists)")
+    p.add_argument("--allow-config-mismatch", action="store_true",
+                   help="downgrade the checkpoint-vs-active config check "
+                        "to a warning")
     p.add_argument("--device-features", action="store_true",
                    help="stage each unique video's resampled features in "
                         "one table on the device before the eval loop "
@@ -245,19 +276,18 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device; cuda when omitted")
     args = p.parse_args(argv)
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: reading Orbax checkpoints is queued in "
-            "ROADMAP.md (the Orbax→.pth path); convert to a parity-schema "
-            ".pth and pass --torch-checkpoint")
-    if not args.torch_checkpoint:
-        p.error("--torch-checkpoint is required")
+    if not args.checkpoint_dir and not args.torch_checkpoint:
+        p.error("one of --checkpoint-dir / --torch-checkpoint is required")
+    if args.checkpoint_dir and args.torch_checkpoint:
+        p.error("--checkpoint-dir and --torch-checkpoint are mutually "
+                "exclusive; pass exactly one parameter source")
     device = resolve_device(args.device)  # no card: raise before any read
     cfg = with_data_flags(get_config(args.config), args)
     vocab = build_vocab(cfg.data, cfg.model)
     model = build_model(cfg, device=device,
                         pretrained_embeddings=vocab.embeddings)
-    model.load_state_dict(load_torch_checkpoint(args.torch_checkpoint))
+    model.load_state_dict(load_params(args, cfg, context="evaluate",
+                                      prefer_best=not args.latest_checkpoint))
     dataset = make_dataset(cfg.data, cfg.model, vocab=vocab, split=args.split)
     results = evaluate(cfg, model, dataset, device=device,
                        device_features=args.device_features)

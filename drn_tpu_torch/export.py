@@ -23,7 +23,8 @@ CLI:
     python -m drn_tpu_torch.export --config charades_c3d --batch-size 48 \\
         --torch-checkpoint m.pth --out drn.pt2 [--device cpu]
 
-Orbax checkpoints (`--checkpoint-dir`) are refused (ROADMAP.md).
+`--checkpoint-dir` reads the LATEST step of a checkpoint directory of the
+port, not its `best/`, as the JAX exporter does.
 """
 
 from __future__ import annotations
@@ -177,7 +178,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="drn_tpu_torch AOT exporter")
     p.add_argument("--config", default="charades_c3d")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="Orbax checkpoint directory (not supported yet)")
+                   help="a checkpoint directory of the port: its latest "
+                        "step (best/ is not preferred)")
     p.add_argument("--torch-checkpoint", default=None,
                    help="optional .pth in the parity schema: the weights "
                         "traced into the artifact (shapes match either way)")
@@ -191,17 +193,16 @@ def main(argv=None):
                    help="the one torch device the artifact runs on; cuda "
                         "when omitted")
     args = p.parse_args(argv)
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: reading Orbax checkpoints is queued in "
-            "ROADMAP.md (the Orbax→.pth path); convert to a parity-schema "
-            ".pth and pass --torch-checkpoint")
+    if args.checkpoint_dir and args.torch_checkpoint:
+        p.error("--checkpoint-dir and --torch-checkpoint are mutually "
+                "exclusive; pass at most one parameter source")
 
     from drn_tpu_torch.config import get_config
     from drn_tpu_torch.convert import load_torch_checkpoint
     from drn_tpu_torch.data.pipeline import build_vocab
     from drn_tpu_torch.evaluate import (build_model, resolve_device,
                                         with_data_flags)
+    from drn_tpu_torch.utils.checkpoint import load_model_state
 
     device = resolve_device(args.device)  # no card: raise before any read
     cfg = with_data_flags(get_config(args.config), args)
@@ -212,6 +213,8 @@ def main(argv=None):
                         pretrained_embeddings=vocab.embeddings)
     if args.torch_checkpoint:
         model.load_state_dict(load_torch_checkpoint(args.torch_checkpoint))
+    elif args.checkpoint_dir:
+        model.load_state_dict(load_model_state(args.checkpoint_dir))
     ep, sidecar = export_eval_step(cfg, model, args.batch_size, device)
     save_exported(ep, sidecar, args.out)
     print(f"exported {cfg.name} -> {args.out} (device={sidecar['device']}, "

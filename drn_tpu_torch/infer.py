@@ -5,12 +5,12 @@
         --features /data/c3d/VID123.npy --duration 31.2 \\
         --query "person opens the door"
 
-Reads a parity-schema `.pth` (`--torch-checkpoint`), the video's features
-(a `.npy`, or an `.h5` with `--video-id`), resamples them onto the grid,
-and prints each query's top segments in seconds with their scores, through
-`evaluate.predict`. It runs on `cuda` unless `--device cpu` is given.
-Orbax checkpoints (`--checkpoint-dir`) are refused (ROADMAP.md queues
-them).
+Reads a parity-schema `.pth` (`--torch-checkpoint`) or a checkpoint
+directory of the port (`--checkpoint-dir`, its `best/` first, as the JAX
+CLI reads it), the video's features (a `.npy`, or an `.h5` with
+`--video-id`), resamples them onto the grid, and prints each query's top
+segments in seconds with their scores, through `evaluate.predict`. It runs
+on `cuda` unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def main(argv=None):
         description="drn_tpu_torch single-video inference")
     p.add_argument("--config", default="charades_c3d")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="Orbax checkpoint directory (not supported yet)")
+                   help="a checkpoint directory of the port (best/ first)")
     p.add_argument("--torch-checkpoint", default=None,
                    help=".pth in the parity schema")
     p.add_argument("--features", required=True,
@@ -54,24 +54,24 @@ def main(argv=None):
                         "vocab matches the one the checkpoint was trained "
                         "with")
     p.add_argument("--top", type=int, default=5)
+    p.add_argument("--allow-config-mismatch", action="store_true",
+                   help="downgrade the checkpoint-vs-active config check "
+                        "to a warning")
     p.add_argument("--device", default=None,
                    help="torch device; cuda when omitted")
     args = p.parse_args(argv)
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: reading Orbax checkpoints is queued in "
-            "ROADMAP.md (the Orbax→.pth path); convert to a parity-schema "
-            ".pth and pass --torch-checkpoint")
-    if not args.torch_checkpoint:
-        p.error("--torch-checkpoint is required")
+    if not args.checkpoint_dir and not args.torch_checkpoint:
+        p.error("one of --checkpoint-dir / --torch-checkpoint is required")
+    if args.checkpoint_dir and args.torch_checkpoint:
+        p.error("--checkpoint-dir and --torch-checkpoint are mutually "
+                "exclusive; pass exactly one parameter source")
 
     from drn_tpu_torch.config import get_config
-    from drn_tpu_torch.convert import load_torch_checkpoint
     from drn_tpu_torch.data.features import (effective_feature_fps,
                                              resample_features)
     from drn_tpu_torch.data.pipeline import build_vocab
     from drn_tpu_torch.data.vocab import tokenize
-    from drn_tpu_torch.evaluate import (build_model, predict,
+    from drn_tpu_torch.evaluate import (build_model, load_params, predict,
                                         resolve_device, with_data_flags)
 
     device = resolve_device(args.device)  # no card: raise before any read
@@ -89,7 +89,7 @@ def main(argv=None):
     n = len(args.query)
     model = build_model(cfg, device=device,
                         pretrained_embeddings=vocab.embeddings)
-    model.load_state_dict(load_torch_checkpoint(args.torch_checkpoint))
+    model.load_state_dict(load_params(args, cfg, context="infer"))
     batch = {
         "features": np.tile(feats[None], (n, 1, 1)),
         "word_ids": np.stack(ids),

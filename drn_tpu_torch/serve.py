@@ -25,8 +25,8 @@ features root, a missing file or a directory) is a 400. Unlike the JAX
 package's server, the staged corpus checks each file's raw shape by name
 before it resamples it, and a request's file is not checked for existence
 before it is read, so a file that vanishes in between is a 400 and not a
-500. The corpus stays in host RAM. Orbax checkpoints (`--checkpoint-dir`)
-are refused (ROADMAP.md).
+500. The corpus stays in host RAM. `--checkpoint-dir` reads a checkpoint
+directory of the port (its `best/` first, as the JAX server reads it).
 """
 
 from __future__ import annotations
@@ -354,26 +354,30 @@ def build_service(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None,
                   batch_size: Optional[int] = None,
                   max_wait_ms: float = 5.0, top: int = 5, params=None,
                   features_root: Optional[str] = None,
+                  allow_config_mismatch: bool = False,
                   stage_corpus: bool = False,
                   device=None) -> GroundingService:
     """The service of `cfg` on `device` (cuda unless the caller asks for
-    the CPU), with the weights of `params` (a parity-schema state_dict) or
-    of `torch_checkpoint` (a `.pth`), else seeded random ones."""
+    the CPU), with the weights of `params` (a parity-schema state_dict),
+    of `torch_checkpoint` (a `.pth`) or of `checkpoint_dir` (its `best/`
+    first), else seeded random ones."""
     from drn_tpu_torch.convert import load_torch_checkpoint
     from drn_tpu_torch.data.pipeline import build_vocab
     from drn_tpu_torch.evaluate import build_model, resolve_device
+    from drn_tpu_torch.utils.checkpoint import restore_params
 
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir: reading Orbax checkpoints is queued in "
-            "ROADMAP.md (the Orbax→.pth path); convert to a parity-schema "
-            ".pth and pass torch_checkpoint")
+    if checkpoint_dir and torch_checkpoint:
+        raise ValueError("checkpoint_dir and torch_checkpoint are mutually "
+                         "exclusive; pass exactly one parameter source")
     device = resolve_device(device)
     vocab = build_vocab(cfg.data, cfg.model)
     model = build_model(cfg, device=device,
                         pretrained_embeddings=vocab.embeddings)
     if params is None and torch_checkpoint:
         params = load_torch_checkpoint(torch_checkpoint)
+    elif params is None and checkpoint_dir:
+        params = restore_params(checkpoint_dir, cfg, context="serve",
+                                allow_config_mismatch=allow_config_mismatch)
     if params is not None:
         model.load_state_dict(params)
     return GroundingService(cfg, model, vocab, batch_size=batch_size,
@@ -386,7 +390,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="drn_tpu_torch grounding server")
     p.add_argument("--config", default="charades_c3d")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="Orbax checkpoint directory (not supported yet)")
+                   help="a checkpoint directory of the port (best/ first)")
     p.add_argument("--torch-checkpoint", default=None,
                    help=".pth in the parity schema")
     p.add_argument("--glove-path", default=None)
@@ -408,6 +412,9 @@ def main(argv=None):
                    help="read and resample every *.npy under "
                         "--features-root into host RAM at startup; "
                         "'video_id' requests then do no file IO")
+    p.add_argument("--allow-config-mismatch", action="store_true",
+                   help="downgrade the checkpoint-vs-active config check "
+                        "to a warning")
     p.add_argument("--device", default=None,
                    help="torch device; cuda when omitted")
     args = p.parse_args(argv)
@@ -423,20 +430,17 @@ def main(argv=None):
         p.error("--features-root is required when binding a non-loopback "
                 "--host (otherwise 'features_path' reads arbitrary "
                 "server-side files)")
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: reading Orbax checkpoints is queued in "
-            "ROADMAP.md (the Orbax→.pth path); convert to a parity-schema "
-            ".pth and pass --torch-checkpoint")
 
     from drn_tpu_torch.evaluate import resolve_device, with_data_flags
 
     device = resolve_device(args.device)  # no card: raise before any read
     cfg = with_data_flags(get_config(args.config), args)
     service = build_service(
-        cfg, torch_checkpoint=args.torch_checkpoint,
+        cfg, checkpoint_dir=args.checkpoint_dir,
+        torch_checkpoint=args.torch_checkpoint,
         batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
         top=args.top, features_root=args.features_root,
+        allow_config_mismatch=args.allow_config_mismatch,
         stage_corpus=args.stage_corpus, device=device)
     service.start()
     server = GroundingHTTPServer((args.host, args.port),

@@ -13,11 +13,19 @@ package's optax chain step for step (`Optimizer`). Entry points run on
 Real datasets come from `--feature-dir` / `--annotation-path`; with
 `--glove-path` the embedding holds the GloVe rows of the dataset's words
 and stays frozen; `--device-features` stages every video's grid in one
-table on the device, from which each step gathers its batch.
+table on the device, from which each step gathers its batch;
+`--num-workers N` builds the batches in N worker processes
+(data/pipeline.py::WorkerBatchIterator), the same batches in the same
+order.
+
+SIGTERM stops the run at the next step boundary: it force-saves
+{model, optimizer, step}, and `main` exits with 75 (utils/preemption.py);
+rerun the same command to resume (`train.resume` is the default), mid-epoch
+without reading the examples already consumed. `--tensorboard-dir` writes
+the logged metrics as TensorBoard scalars too.
 
 Out of scope, and refused rather than ignored: a device mesh and
-multi-process runs, worker processes for IO, TensorBoard, Orbax
-checkpoints and the preemption guard (ROADMAP.md queues each).
+multi-process runs (ROADMAP.md, multi-GPU).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 import torch.nn as nn
 
 from drn_tpu_torch.config import ExperimentConfig, get_config
-from drn_tpu_torch.data.pipeline import (BatchIterator, build_vocab,
+from drn_tpu_torch.data.pipeline import (build_vocab, make_batch_iterator,
                                          make_dataset)
 from drn_tpu_torch.evaluate import (_refuse_out_of_scope, batch_features,
                                     build_model, evaluate, resolve_device,
@@ -46,9 +54,11 @@ from drn_tpu_torch.utils.checkpoint import (BestCheckpointTracker,
                                             check_experiment_config,
                                             config_parity_diffs,
                                             load_experiment_config,
+                                            load_model_state,
                                             prefer_best_dir,
                                             save_experiment_config)
 from drn_tpu_torch.utils.logging import MetricLogger
+from drn_tpu_torch.utils.preemption import PreemptionGuard, exit_code_for
 
 # Parameters that are constants of the model, never trained: the LSTMs'
 # second bias (flax's cell has one bias per gate; see query_encoder.py).
@@ -270,17 +280,10 @@ def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None):
     return fn
 
 
-def _refuse_train_out_of_scope(cfg: ExperimentConfig, mesh,
-                               device_features) -> None:
-    _refuse_out_of_scope(cfg, mesh, device_features)
-    if cfg.train.tensorboard_dir:
-        raise NotImplementedError("train.tensorboard_dir: the port logs "
-                                  "JSON lines to stderr only")
-
-
 def train(cfg: ExperimentConfig, *, device=None,
           init_from: Optional[str] = None, max_steps: Optional[int] = None,
-          eval_fn=None, allow_config_mismatch: bool = False,
+          eval_fn=None, preemption_guard: Optional[PreemptionGuard] = None,
+          allow_config_mismatch: bool = False,
           run_info: Optional[dict] = None, mesh=None,
           device_features: bool = False) -> DRN:
     """A full training run on `device` (cuda by default); returns the
@@ -289,89 +292,122 @@ def train(cfg: ExperimentConfig, *, device=None,
     ended. `eval_fn(model, epoch)` → selection metric or None replaces the
     periodic val-split eval. `device_features` stages every training
     video's grid in one table on `device` before the first step
-    (data/staging.py)."""
-    _refuse_train_out_of_scope(cfg, mesh, device_features)
+    (data/staging.py).
+
+    SIGTERM stops the loop at the next step boundary: the run logs
+    {"preempted": 1.0}, skips the eval and force-saves the step. Pass an
+    installed `preemption_guard` to read `guard.triggered` afterwards;
+    without one the run installs its own."""
+    _refuse_out_of_scope(cfg, mesh, device_features)
     dev = resolve_device(device)
     tc = cfg.train
-    log = MetricLogger(f"train/{cfg.name}/stage{tc.stage}")
+    log = MetricLogger(f"train/{cfg.name}/stage{tc.stage}",
+                       tensorboard_dir=tc.tensorboard_dir)
     vocab = build_vocab(cfg.data, cfg.model)
     dataset = make_dataset(cfg.data, cfg.model, vocab=vocab, split="train")
     table = None
     if device_features:
         table, dataset = stage_on_device(dataset, dev)
-    batches = BatchIterator(dataset, cfg.data.batch_size, shuffle=True,
-                            seed=tc.seed)
-    steps_per_epoch = len(batches)
-    model = build_model(cfg, device=dev, seed=tc.seed,
-                        pretrained_embeddings=vocab.embeddings)
+    batches = make_batch_iterator(dataset, cfg.data, shuffle=True,
+                                  seed=tc.seed,
+                                  pin_memory=dev.type == "cuda")
+    batches.start()  # worker processes start while the model is built
+    guard = preemption_guard
+    own_guard = guard is None
+    if own_guard:
+        guard = PreemptionGuard().install()
+    try:
+        steps_per_epoch = len(batches)
+        model = build_model(cfg, device=dev, seed=tc.seed,
+                            pretrained_embeddings=vocab.embeddings)
 
-    ckpt_dir = os.path.join(tc.checkpoint_dir, cfg.name, f"stage{tc.stage}")
-    ckpt = CheckpointManager(ckpt_dir, keep=tc.keep_checkpoints,
-                             save_interval_steps=tc.checkpoint_every_steps)
-    if init_from:  # stage 2 starts from stage 1's params (best-on-val if kept)
-        check_experiment_config(init_from, cfg, context="--init-from",
-                                allow_mismatch=allow_config_mismatch)
-        restored = CheckpointManager(prefer_best_dir(init_from)).restore()
-        if restored is not None:
-            model.load_state_dict(restored["model"])
-    optimizer = make_optimizer(cfg, steps_per_epoch, model)
-    start_step = 0
-    if tc.resume:
-        check_experiment_config(ckpt_dir, cfg, context="resume",
-                                allow_mismatch=allow_config_mismatch)
-        restored = ckpt.restore()
-        if restored is not None:
-            model.load_state_dict(restored["model"])
-            optimizer.load_state_dict(restored["optimizer"])
-            start_step = int(restored["step"])
-    else:
-        stale = load_experiment_config(ckpt_dir)
-        if stale is not None and config_parity_diffs(stale, cfg):
-            print(f"[train] WARNING: {ckpt_dir!r} holds the provenance of a "
-                  f"parity-different config ({stale.get('name', '?')!r}); "
-                  "overwriting it. Its checkpoints belong to the old config.",
-                  flush=True)
-    save_experiment_config(ckpt_dir, cfg)
-    if run_info is not None:
-        run_info["start_step"] = start_step
+        ckpt_dir = os.path.join(tc.checkpoint_dir, cfg.name,
+                                f"stage{tc.stage}")
+        ckpt = CheckpointManager(
+            ckpt_dir, keep=tc.keep_checkpoints,
+            save_interval_steps=tc.checkpoint_every_steps)
+        if init_from:  # stage 2 starts from stage 1's (best-on-val if kept)
+            check_experiment_config(init_from, cfg, context="--init-from",
+                                    allow_mismatch=allow_config_mismatch)
+            model.load_state_dict(
+                load_model_state(prefer_best_dir(init_from)))
+        optimizer = make_optimizer(cfg, steps_per_epoch, model)
+        start_step = 0
+        if tc.resume:
+            check_experiment_config(ckpt_dir, cfg, context="resume",
+                                    allow_mismatch=allow_config_mismatch)
+            restored = ckpt.restore()
+            if restored is not None:
+                if "optimizer" not in restored:
+                    raise ValueError(
+                        f"cannot resume from {ckpt_dir!r}: step "
+                        f"{restored['step']} holds the model's parameters "
+                        "but no optimizer state (a converted checkpoint?); "
+                        "pass it as --init-from, or train into another "
+                        "--checkpoint-dir")
+                model.load_state_dict(restored["model"])
+                optimizer.load_state_dict(restored["optimizer"])
+                start_step = int(restored["step"])
+        else:
+            stale = load_experiment_config(ckpt_dir)
+            if stale is not None and config_parity_diffs(stale, cfg):
+                print(f"[train] WARNING: {ckpt_dir!r} holds the provenance "
+                      "of a parity-different config "
+                      f"({stale.get('name', '?')!r}); overwriting it. Its "
+                      "checkpoints belong to the old config.", flush=True)
+        save_experiment_config(ckpt_dir, cfg)
+        if run_info is not None:
+            run_info["start_step"] = start_step
 
-    if eval_fn is None:
-        eval_fn = _default_eval_fn(cfg, dev, vocab)
-    best: Optional[BestCheckpointTracker] = None
-    train_step = make_train_step(cfg, model, optimizer)
+        if eval_fn is None:
+            eval_fn = _default_eval_fn(cfg, dev, vocab)
+        best: Optional[BestCheckpointTracker] = None
+        train_step = make_train_step(cfg, model, optimizer)
 
-    def state(step):
-        return {"model": model.state_dict(), "optimizer":
-                optimizer.state_dict(), "step": step}
+        def state(step):
+            return {"model": model.state_dict(), "optimizer":
+                    optimizer.state_dict(), "step": step}
 
-    step, done = 0, False
-    for epoch in range(tc.num_epochs):
-        if done:
-            break
-        if (epoch + 1) * steps_per_epoch <= start_step:
-            step = (epoch + 1) * steps_per_epoch  # covered by the restore
-            continue
-        skip = max(start_step - step, 0)  # mid-epoch resume point
-        step += skip
-        model.train()  # cuDNN's LSTM backward runs in training mode only
-        for batch in batches.epoch(epoch, skip_batches=skip):
-            metrics = train_step(to_device(batch, dev), table)
-            step += 1
-            if step % tc.log_every_steps == 0 or step == 1:
-                log.log(step, {"epoch": epoch, **metrics})
-            if ckpt.should_save(step):
-                ckpt.save(step, state(step))
-            if max_steps is not None and step >= max_steps:
-                done = True
+        step, done = 0, False
+        for epoch in range(tc.num_epochs):
+            if done:
                 break
-        if (eval_fn is not None and not done and tc.eval_every_epochs > 0
-                and (epoch + 1) % tc.eval_every_epochs == 0):
-            val = eval_fn(model, epoch)
-            if val is not None:
-                best = best or BestCheckpointTracker(ckpt_dir)
-                if best.update(step, model.state_dict(), val):
-                    log.log(step, {"epoch": epoch, "best_val_metric": val})
-    ckpt.save(step, state(step), force=True)
+            if (epoch + 1) * steps_per_epoch <= start_step:
+                step = (epoch + 1) * steps_per_epoch  # covered by the restore
+                continue
+            skip = max(start_step - step, 0)  # mid-epoch resume point
+            step += skip
+            model.train()  # cuDNN's LSTM backward runs in training mode only
+            for batch in batches.epoch(epoch, skip_batches=skip):
+                metrics = train_step(to_device(batch, dev), table)
+                step += 1
+                if step % tc.log_every_steps == 0 or step == 1:
+                    log.log(step, {"epoch": epoch, **metrics})
+                if ckpt.should_save(step):
+                    ckpt.save(step, state(step))
+                if max_steps is not None and step >= max_steps:
+                    done = True
+                    break
+                if guard.preempted_at(step):
+                    # Stop now, eval skipped: the grace period is for the
+                    # save below.
+                    log.log(step, {"epoch": epoch, "preempted": 1.0})
+                    done = True
+                    break
+            if (eval_fn is not None and not done and tc.eval_every_epochs > 0
+                    and (epoch + 1) % tc.eval_every_epochs == 0):
+                val = eval_fn(model, epoch)
+                if val is not None:
+                    best = best or BestCheckpointTracker(ckpt_dir)
+                    if best.update(step, model.state_dict(), val):
+                        log.log(step, {"epoch": epoch,
+                                       "best_val_metric": val})
+        ckpt.save(step, state(step), force=True)
+    finally:
+        batches.close()
+        log.close()
+        if own_guard:
+            guard.uninstall()
     if run_info is not None:
         run_info["step"] = step
     return model
@@ -425,11 +461,16 @@ def main(argv=None):
     p.add_argument("--annotation-path", default=None)
     p.add_argument("--glove-path", default=None)
     p.add_argument("--num-workers", type=int, default=None,
-                   help="worker processes for IO (not ported: > 0 raises)")
+                   help="worker processes that build the batches (0: in "
+                        "process); the same batches either way")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--init-from", default=None,
                    help="stage-1 checkpoint directory for stage-2 init")
     p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="also write the logged metrics as TensorBoard "
+                        "scalars under <dir>/<tag> (needs the tensorboard "
+                        "package)")
     p.add_argument("--allow-config-mismatch", action="store_true",
                    help="downgrade the checkpoint-vs-active config check "
                         "(resume / --init-from) to a warning")
@@ -464,7 +505,8 @@ def main(argv=None):
         tr["stage2_iou_only"] = False
     for flag, key in (("accum_steps", "accum_steps"), ("epochs", "num_epochs"),
                       ("lr", "learning_rate"),
-                      ("checkpoint_dir", "checkpoint_dir")):
+                      ("checkpoint_dir", "checkpoint_dir"),
+                      ("tensorboard_dir", "tensorboard_dir")):
         if getattr(args, flag) is not None:
             tr[key] = getattr(args, flag)
     if args.batch_size is not None:
@@ -475,10 +517,15 @@ def main(argv=None):
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, **da))
     if args.preflight:
         preflight(cfg, args.preflight_sample)
-    train(cfg, device=args.device, init_from=args.init_from,
-          max_steps=args.max_steps,
-          allow_config_mismatch=args.allow_config_mismatch,
-          device_features=args.device_features)
+    with PreemptionGuard() as guard:
+        train(cfg, device=args.device, init_from=args.init_from,
+              max_steps=args.max_steps, preemption_guard=guard,
+              allow_config_mismatch=args.allow_config_mismatch,
+              device_features=args.device_features)
+    if guard.triggered:
+        # EX_TEMPFAIL: the step is saved; rerunning the command resumes.
+        print("preempted: state saved; rerun to resume", file=sys.stderr)
+        sys.exit(exit_code_for(guard))
 
 
 if __name__ == "__main__":

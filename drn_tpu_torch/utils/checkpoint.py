@@ -1,6 +1,5 @@
-"""Checkpoints of the port: the part of drn_tpu/utils/checkpoint.py the
-trainer needs, as `.pth` files where the JAX package writes Orbax
-directories (reading Orbax checkpoints is queued in ROADMAP.md).
+"""Checkpoints of the port (port of drn_tpu/utils/checkpoint.py), as
+`.pth` files where the JAX package writes Orbax directories:
 
     <dir>/<step>.pth              {"model", "optimizer", "step"}
     <dir>/best/<step>.pth         {"model", "step", "val_metric"}
@@ -8,13 +7,22 @@ directories (reading Orbax checkpoints is queued in ROADMAP.md).
 
 "model" is a state_dict in the parity schema (`DRN.state_dict()`), so
 `python -m drn_tpu_torch.evaluate --torch-checkpoint <dir>/<step>.pth`
-reads any of them. Writes go to a temporary file renamed into place, so a
-reader never sees half a checkpoint.
+reads any of them, and `--checkpoint-dir <dir>` reads the directory
+(`<dir>/best` first, as the JAX CLIs do: `prefer_best_dir`). Writes go to
+a temporary file renamed into place, so a reader never sees half a
+checkpoint. A step file without "optimizer" (one that
+tools/orbax_to_pth.py converted) serves every reader and `--init-from`;
+resuming from it raises.
+
+The port reads no Orbax directory (a directory of numeric step
+subdirectories): `load_model_state` names the converter instead,
+tools/orbax_to_pth.py, which runs where the JAX package is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -25,6 +33,7 @@ import torch
 
 BEST_SUBDIR = "best"
 CONFIG_FILENAME = "experiment_config.json"
+CONVERTER = "tools/orbax_to_pth.py"
 
 # Parity-relevant config fields, as the JAX package's: everything under
 # `model` except the scheduling knobs, and the data fields that fix the
@@ -44,10 +53,67 @@ def _atomic_save(obj: Any, path: str) -> None:
 def _steps(directory: str) -> List[int]:
     try:
         names = os.listdir(directory)
-    except FileNotFoundError:
+    except (FileNotFoundError, NotADirectoryError):
         return []
     return sorted(int(n[:-4]) for n in names
                   if n.endswith(".pth") and n[:-4].isdigit())
+
+
+def is_orbax_dir(directory: str) -> bool:
+    """True for Orbax's layout: numeric step subdirectories (in
+    `directory` or its `best/`)."""
+    for d in (directory, os.path.join(directory, BEST_SUBDIR)):
+        try:
+            if any(n.isdigit() and os.path.isdir(os.path.join(d, n))
+                   for n in os.listdir(d)):
+                return True
+        except (FileNotFoundError, NotADirectoryError):
+            continue
+    return False
+
+
+class OrbaxCheckpointError(ValueError):
+    """An Orbax checkpoint directory given to the port."""
+
+
+def step_path(directory: str, step: Optional[int] = None) -> str:
+    """`<directory>/<step>.pth`, the latest step when `step` is None.
+    FileNotFoundError when there is none (or not that step);
+    OrbaxCheckpointError, naming the converter, for an Orbax directory."""
+    steps = _steps(directory)
+    if not steps and is_orbax_dir(directory):
+        raise OrbaxCheckpointError(
+            f"{directory!r} is an Orbax checkpoint directory (numeric step "
+            "subdirectories), which the port does not read; convert it "
+            f"where the JAX package is installed: python {CONVERTER} "
+            f"--config <name> --checkpoint-dir {directory} --out <dir>")
+    if not steps or (step is not None and step not in steps):
+        what = "no checkpoint" if step is None else f"no step {step}"
+        raise FileNotFoundError(f"{what} in {directory}")
+    return os.path.join(directory, f"{steps[-1] if step is None else step}"
+                        ".pth")
+
+
+def load_model_state(directory: str, step: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The params-only restore (the JAX package's `partial=True`): the
+    "model" state_dict of `directory`'s step (latest by default), whatever
+    else the file holds."""
+    return torch.load(step_path(directory, step), map_location="cpu",
+                      weights_only=True)["model"]
+
+
+def restore_params(directory: str, cfg: Any, *, prefer_best: bool = True,
+                   allow_config_mismatch: bool = False,
+                   context: str = "restore") -> Dict[str, torch.Tensor]:
+    """What the reading CLIs restore from `--checkpoint-dir`: the config
+    check (`check_experiment_config`), then the params of the latest step
+    of `<directory>/best` when it has one and `prefer_best`, else of
+    `directory`."""
+    check_experiment_config(directory, cfg,
+                            allow_mismatch=allow_config_mismatch,
+                            context=context)
+    return load_model_state(prefer_best_dir(directory, prefer=prefer_best))
 
 
 class CheckpointManager:
@@ -83,23 +149,29 @@ class CheckpointManager:
             os.remove(os.path.join(self.directory, f"{old}.pth"))
         return True
 
-    def restore(self) -> Optional[Dict[str, Any]]:
-        """The latest checkpoint, or None."""
-        step = self.latest_step()
-        if step is None:
+    def restore(self, step: Optional[int] = None
+                ) -> Optional[Dict[str, Any]]:
+        """Checkpoint `step` (the latest by default), or None when the
+        directory holds none; an Orbax directory raises."""
+        if (step is None and self.latest_step() is None
+                and not is_orbax_dir(self.directory)):
             return None
-        return torch.load(os.path.join(self.directory, f"{step}.pth"),
+        return torch.load(step_path(self.directory, step),
                           map_location="cpu", weights_only=True)
 
 
 class BestCheckpointTracker:
     """The single best-on-val checkpoint under `<directory>/best`; the
     metric is read back on start, so a resumed run does not overwrite a
-    better checkpoint with a worse one. An unreadable one is warned about
-    and replaced by the next best."""
+    better checkpoint with a worse one. An unreadable best (a file that
+    does not load, one without "val_metric") is moved aside, whole
+    directory and all, to `best.corrupt-N` with a warning: the readers'
+    `prefer_best_dir` would otherwise hand it to every evaluation. The
+    next evaluation re-anchors the best."""
 
     def __init__(self, directory: str):
-        self.directory = os.path.join(directory, BEST_SUBDIR)
+        self.directory = os.path.join(os.path.abspath(directory),
+                                      BEST_SUBDIR)
         os.makedirs(self.directory, exist_ok=True)
         self.best_metric: Optional[float] = None
         steps = _steps(self.directory)
@@ -110,9 +182,38 @@ class BestCheckpointTracker:
                                      weights_only=True)["val_metric"])
                 self.best_metric = m if math.isfinite(m) else None
             except Exception as e:  # noqa: BLE001: any unreadable file
-                warnings.warn(f"best checkpoint {path!r} is unreadable "
-                              f"({type(e).__name__}: {e}); the next "
-                              "evaluation replaces it")
+                target = self._quarantine()
+                warnings.warn(
+                    f"best-checkpoint metric restore failed for {path!r} "
+                    f"({type(e).__name__}: {e}); moved the directory to "
+                    f"{target!r}; the next evaluation re-anchors the best")
+
+    def _quarantine(self) -> str:
+        """Rename the best directory to the first free `best.corrupt-N`
+        and start an empty one. Race-safe between processes that share
+        the directory: a rename whose source is gone lost to a peer (its
+        newest `best.corrupt-*` is reported), one whose target is taken
+        tries the next N."""
+        n = 0
+        while True:
+            target = f"{self.directory}.corrupt-{n}"
+            if os.path.exists(target):
+                n += 1
+                continue
+            try:
+                os.rename(self.directory, target)
+            except FileNotFoundError:
+                peers = glob.glob(glob.escape(self.directory) + ".corrupt-*")
+                try:
+                    target = max(peers, key=os.path.getmtime)
+                except (ValueError, FileNotFoundError):
+                    target = f"{self.directory}.corrupt-* (moved by a peer)"
+            except OSError:
+                n += 1  # a peer took this target first
+                continue
+            break
+        os.makedirs(self.directory, exist_ok=True)
+        return target
 
     def update(self, step: int, model_state: Dict[str, torch.Tensor],
                val_metric: float) -> bool:
@@ -130,10 +231,14 @@ class BestCheckpointTracker:
         return True
 
 
-def prefer_best_dir(directory: str) -> str:
-    """`<directory>/best` when it holds a checkpoint, else `directory`."""
+def prefer_best_dir(directory: str, prefer: bool = True) -> str:
+    """`<directory>/best` when `prefer` and it holds a checkpoint (a step
+    file, or an Orbax step, so that one is refused by name), else
+    `directory`."""
     best = os.path.join(directory, BEST_SUBDIR)
-    return best if _steps(best) else directory
+    if prefer and (_steps(best) or is_orbax_dir(best)):
+        return best
+    return directory
 
 
 def _jsonable(cfg: Any) -> dict:

@@ -770,3 +770,95 @@ def test_a_served_request_runs_on_the_batcher_thread(dev, monkeypatch):
     assert got == {"segments": [[float(segs[0, j, 0]), float(segs[0, j, 1])]
                                 for j in kept],
                    "scores": [float(scores[0, j]) for j in kept]}
+
+
+# --- training at production width, and the worker-fed step -----------------
+
+
+def _flagship_synthetic(num_clips, batch_size, **model):
+    """charades_c3d (hidden 512, the kernels' width) on the synthetic
+    fixture at F=1024, stage 2 trained jointly, as tests/
+    test_train_overfit.py sets it up."""
+    from drn_tpu_torch.config import get_config
+
+    cfg = get_config("charades_c3d")
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, feature_dim=1024, **model),
+        data=dataclasses.replace(cfg.data, dataset="synthetic",
+                                 num_clips=num_clips, batch_size=batch_size),
+        train=dataclasses.replace(cfg.train, stage=2, stage2_iou_only=False))
+
+
+def _overfit(dev, cfg, n, steps, key):
+    from drn_tpu_torch.data.pipeline import BatchIterator
+    from drn_tpu_torch.data.synthetic import SyntheticDataset
+    from drn_tpu_torch.evaluate import build_model, to_device
+    from drn_tpu_torch.train import make_optimizer, make_train_step
+
+    ds = SyntheticDataset(cfg.data, cfg.model, num_examples=n)
+    batch = to_device(next(BatchIterator(ds, n, shuffle=False).epoch(0)), dev)
+    model = build_model(cfg, seed=0).train()
+    step = make_train_step(cfg, model, make_optimizer(cfg, 100, model))
+    before = launch_counts()
+    history = [float(step(batch)[key]) for _ in range(steps)]
+    after = launch_counts()
+    assert all(after[k] > before[k] for k in ("fused_stem", "conv_ln_relu",
+                                              "fused_fusion_block",
+                                              "fused_fusion"))
+    return history
+
+
+def test_regression_learns_at_flagship_width(dev):
+    """Twin of tests/test_train_overfit.py's: through the kernels forward
+    and backward at width 512, regression keeps learning long after the
+    first steps (a frozen decode would hold mean_pos_iou still)."""
+    history = _overfit(dev, _flagship_synthetic(32, 4), 4, 30,
+                       "mean_pos_iou")
+    assert history[-1] > history[2] + 0.1, history[::5]
+    assert history[-1] > 0.45, history[-1]
+
+
+def test_stage2_iou_head_learns_under_fold_at_flagship_width(dev):
+    """Twin of tests/test_train_overfit.py's: the stage-2 IoU loss halves
+    at width 512 on a 256-clip grid with the IoU head's mix fold forced
+    on (iou_fold_mix_min_locations=0)."""
+    history = _overfit(dev, _flagship_synthetic(
+        256, 2, iou_fold_mix_min_locations=0), 2, 14, "iou_loss")
+    assert np.isfinite(history).all(), history
+    assert history[-1] < 0.5 * history[0], history
+
+
+def test_worker_fed_train_step_equals_the_in_process_one(dev):
+    """The batch from 2 worker processes, pinned, equals the in-process
+    batch, and the train step on it equals the step on that batch."""
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.data.pipeline import (BatchIterator,
+                                             WorkerBatchIterator,
+                                             make_dataset)
+    from drn_tpu_torch.evaluate import build_model, to_device
+    from drn_tpu_torch.train import loss_and_grads
+
+    cfg = get_config("synthetic_tiny")
+    ds = make_dataset(cfg.data, cfg.model)
+    want = next(BatchIterator(ds, 8, shuffle=True, seed=4).epoch(2))
+    it = WorkerBatchIterator(ds, 8, shuffle=True, seed=4, num_workers=2,
+                             pin_memory=True)
+    try:
+        got = next(it.epoch(2))
+    finally:
+        it.close()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.from_numpy(got[k]).is_pinned(), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    model = build_model(cfg, seed=1).train()
+    runs = []
+    for batch in (want, got):
+        loss = loss_and_grads(cfg, model, to_device(batch, dev))["loss"]
+        runs.append((loss.item(), {k: p.grad.clone() for k, p in
+                                   model.named_parameters()
+                                   if p.grad is not None}))
+    assert runs[0][0] == runs[1][0]
+    for k, g in runs[0][1].items():
+        torch.testing.assert_close(runs[1][1][k], g, rtol=1e-5, atol=1e-7,
+                                   msg=k)

@@ -199,8 +199,15 @@ def test_export_cli_on_the_cpu(tmp_path, capsys):
 
 def test_export_cli_refuses_orbax_and_the_cpu_unless_asked(tmp_path,
                                                           monkeypatch):
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        export.main(["--checkpoint-dir", "ckpt", "--out", "x.pt2"])
+    base = ["--config", "synthetic_tiny", "--device", "cpu", "--out",
+            str(tmp_path / "x.pt2")]
+    with pytest.raises(FileNotFoundError, match="no checkpoint in"):
+        export.main(base + ["--checkpoint-dir", str(tmp_path / "ckpt")])
+    (tmp_path / "orbax" / "2").mkdir(parents=True)
+    with pytest.raises(ValueError, match="Orbax.*tools/orbax_to_pth.py"):
+        export.main(base + ["--checkpoint-dir", str(tmp_path / "orbax")])
+    os.rmdir(tmp_path / "orbax" / "2")
+    os.rmdir(tmp_path / "orbax")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         export.main(["--config", "synthetic_tiny", "--torch-checkpoint",

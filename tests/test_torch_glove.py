@@ -277,7 +277,15 @@ def test_train_cli_in_glove_mode_staged(setup, tmp_path, monkeypatch):
     np.testing.assert_array_equal(saved["model"]["embed.weight"].numpy(),
                                   setup.vocab.embeddings)
     assert saved["step"] == 2
-    with pytest.raises(NotImplementedError, match="num_workers"):
-        port_train.main(["--config", "glove_tiny", "--device", "cpu",
-                         "--num-workers", "2", "--checkpoint-dir",
-                         str(tmp_path)])
+    # Worker processes over the staged view: the same two steps.
+    port_train.main(["--config", "glove_tiny", "--max-steps", "2",
+                     "--device", "cpu", "--checkpoint-dir",
+                     str(tmp_path / "workers"), "--feature-dir",
+                     d.feature_dir, "--annotation-path", d.annotation_path,
+                     "--glove-path", d.glove_path, "--feature-fps", "1.0",
+                     "--device-features", "--num-workers", "2"])
+    again = torch.load(tmp_path / "workers" / setup.cfg.name / "stage1"
+                       / "2.pth", weights_only=True)
+    for k, v in saved["model"].items():
+        torch.testing.assert_close(again["model"][k], v, rtol=0, atol=0,
+                                   msg=k)

@@ -157,9 +157,16 @@ def test_infer_refuses_orbax_and_the_cpu_unless_asked(tmp_path, monkeypatch):
     feats = tmp_path / "vid.npy"
     np.save(feats, np.zeros((8, 128), np.float32))
     base = ["--config", "synthetic_tiny", "--features", str(feats),
-            "--query", "x", "--duration", "4"]
-    with pytest.raises(NotImplementedError, match="Orbax"):
+            "--query", "x", "--duration", "4", "--device", "cpu"]
+    with pytest.raises(FileNotFoundError, match="no checkpoint in"):
         infer.main(base + ["--checkpoint-dir", str(tmp_path)])
+    (tmp_path / "orbax" / "best" / "3").mkdir(parents=True)
+    with pytest.raises(ValueError, match="Orbax.*tools/orbax_to_pth.py"):
+        infer.main(base + ["--checkpoint-dir", str(tmp_path / "orbax")])
+    with pytest.raises(SystemExit):  # two parameter sources
+        infer.main(base + ["--checkpoint-dir", str(tmp_path),
+                           "--torch-checkpoint", "m.pth"])
+    base = base[:-2]
     with pytest.raises(SystemExit):
         infer.main(base + ["--device", "cpu"])  # no checkpoint
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

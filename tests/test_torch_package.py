@@ -127,25 +127,33 @@ def test_evaluate_on_the_cpu_when_asked():
     assert all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in res.values())
 
 
-def test_out_of_scope_options_raise():
-    """Refused rather than ignored: a mesh, worker processes, Orbax;
-    staging the synthetic fixture (it has no feature files) and a real
-    dataset without its annotation files raise too."""
+def test_out_of_scope_options_raise(tmp_path):
+    """Refused rather than ignored: a mesh; staging the synthetic fixture
+    (it has no feature files) and a real dataset without its annotation
+    files raise too, as do a missing checkpoint directory and an Orbax
+    one (naming its converter). Worker processes are in scope: the same
+    metrics as in process."""
     cfg = port_config.get_config("synthetic_tiny")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                               synthetic_examples=12))
     model = port_eval.build_model(cfg, device="cpu")
     with pytest.raises(ValueError, match="synthetic"):
         port_eval.evaluate(cfg, model, device="cpu", device_features=True)
     with pytest.raises(NotImplementedError):
         port_eval.evaluate(cfg, model, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_eval.evaluate(cfg.replace(data=dataclasses.replace(
-            cfg.data, num_workers=2)), model, device="cpu")
+    assert port_eval.evaluate(cfg.replace(data=dataclasses.replace(
+        cfg.data, num_workers=2)), model, device="cpu") == \
+        port_eval.evaluate(cfg, model, device="cpu")
     with pytest.raises(FileNotFoundError, match="annotation file"):
         port_eval.evaluate(port_config.get_config("charades_c3d"), model,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint in"):
         port_eval.main(["--config", "synthetic_tiny", "--checkpoint-dir",
-                        "ckpt", "--device", "cpu"])
+                        str(tmp_path / "ckpt"), "--device", "cpu"])
+    (tmp_path / "orbax" / "7" / "default").mkdir(parents=True)
+    with pytest.raises(ValueError, match="Orbax.*tools/orbax_to_pth.py"):
+        port_eval.main(["--config", "synthetic_tiny", "--checkpoint-dir",
+                        str(tmp_path / "orbax"), "--device", "cpu"])
 
 
 def test_main_evaluates_a_parity_checkpoint(tmp_path, capsys):

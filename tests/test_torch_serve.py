@@ -400,12 +400,12 @@ def test_port_answers_as_the_jax_server(servers, name):
     (["--checkpoint-dir", "ckpt", "--torch-checkpoint", "m.pth"], SystemExit),
     (["--torch-checkpoint", "m.pth", "--stage-corpus"], SystemExit),
     ([], SystemExit),
-    (["--checkpoint-dir", "ckpt"], NotImplementedError),
+    (["--checkpoint-dir", "ckpt"], FileNotFoundError),
 ])
 def test_serve_cli_guards(argv, error):
     """Refused before anything is read: a non-loopback bind without a
     features root, two parameter sources or none, staging without a
-    root, and Orbax checkpoints."""
+    root; a checkpoint directory that holds no checkpoint."""
     with pytest.raises(error):
         serve.main(argv + ["--device", "cpu"])
 

@@ -356,14 +356,23 @@ def test_main_trains_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_out_of_scope_options_raise(tmp_path):
+    """A mesh is refused. Worker processes are in scope: one step fed by
+    them saves what the in-process step saves. (TensorBoard, refused here
+    before, is held by tests/test_torch_tensorboard.py.)"""
     cfg = _loop_config(tmp_path)
-    for bad in (dict(data=dataclasses.replace(cfg.data, num_workers=2)),
-                dict(train=dataclasses.replace(cfg.train,
-                                               tensorboard_dir="tb"))):
-        with pytest.raises(NotImplementedError):
-            port_train.train(cfg.replace(**bad), device="cpu", max_steps=1)
     with pytest.raises(NotImplementedError):
         port_train.train(cfg, device="cpu", mesh=object())
+    port_train.train(cfg, device="cpu", max_steps=1)
+    other = tmp_path / "workers"
+    port_train.train(cfg.replace(
+        data=dataclasses.replace(cfg.data, num_workers=2),
+        train=dataclasses.replace(cfg.train, checkpoint_dir=str(other))),
+        device="cpu", max_steps=1)
+    sub = f"{cfg.name}/stage1/1.pth"
+    want = torch.load(tmp_path / sub, weights_only=True)["model"]
+    got = torch.load(other / sub, weights_only=True)["model"]
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
 
 
 def test_overfit_halves_the_loss():
