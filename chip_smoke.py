@@ -90,24 +90,25 @@ non-zero exit code:
   9. checkpoint  checkpoint directories end to end on the `dataset`
               phase's corpus (written again from its seed) at
               charades_c3d's full width in GloVe mode, B=48 (8 steps an
-              epoch): the train step's ms and examples/s fed in process
-              and by 2 worker processes (15 steps each, streamed), and
-              its parts (a batch built in process, the step on a batch on
-              the card, the batch's copy); then
-              three children of the train CLI on the card with
-              --num-workers 2: (a) 6 steps; (b) the same, sent SIGTERM
-              after its step-3 line, which must exit 75 with the step it
-              logged as preempted saved; (c) the same command again, which
-              must resume there, exit 0 and log (a)'s losses within
-              TRAIN_LOSS_RTOL and end on (a)'s parameters within
-              RESUME_PARAM_REL (relative L2); the seconds from (c)'s start
-              to its first step and each child's wall time. Then the
-              readers of (a)'s directory against its 6.pth: `evaluate`
-              (with and without --latest-checkpoint: the same printout),
-              `serve.build_service` (bit-equal answers), `export` (outputs
-              bit-equal) and `infer` (the same top segments). The four
-              package kernels launch in this phase's own steps and in
-              every child (each child prints its launch counts).
+              epoch), streamed: three children of the train CLI on the
+              card, 10 steps each: (a) fed in process; (b) fed by 2
+              worker processes, sent SIGTERM after its step-3 line, which
+              must exit 75 with the step it logged as preempted saved;
+              (c) the same command again, which must resume there, exit 0
+              and log (a)'s losses within TRAIN_LOSS_RTOL and end on
+              (a)'s parameters within RESUME_PARAM_REL (relative L2). (a)
+              and (c) cross the first epoch's end: its val eval (test
+              split) and best checkpoint. From the children's step lines:
+              the train step's ms and examples/s in process (a) and by 2
+              workers (c), the epoch boundary's ms; the seconds from (c)'s
+              start to its first step and each child's wall time. Then
+              the readers of (a)'s directory against its step files:
+              `evaluate` (best/ against best/8.pth; --latest-checkpoint
+              against 10.pth: the same printouts), `serve.build_service`
+              (bit-equal answers to best/8.pth's), `export` (the latest:
+              outputs bit-equal to 10.pth's) and `infer` (the same top
+              segments as best/8.pth's). Every child launches the four
+              package kernels (each prints its launch counts).
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -169,8 +170,9 @@ TRAIN_GRAD_REL = 0.08
 # L2 distance of all parameters stays far below 1e-3.
 RESUME_PARAM_REL = 1e-3
 # The checkpoint phase: training batch (8 steps an epoch of the corpus's
-# 384 examples), steps, the step after which (b) is sent SIGTERM.
-CK_BATCH, CK_STEPS, CK_SIGTERM_AFTER = 48, 6, 3
+# 384 examples), steps (past the first epoch's end and its eval), the step
+# after which (b) is sent SIGTERM.
+CK_BATCH, CK_STEPS, CK_SIGTERM_AFTER = 48, 10, 3
 
 CONFIG = "charades_c3d_batched_eval"
 EXAMPLES = 120  # 48 + 48 + 24: three eval steps, the last one padded
@@ -1058,17 +1060,22 @@ PACKAGE_KERNELS = ("fused_stem", "fused_fusion_block", "conv_ln_relu",
 
 
 def _train_child(args, sigterm_after=None):
-    """Run the train CLI child to its end → (exit code, {step: loss}, the
-    preempted step or None, launches, wall s, s to the first step line,
-    stderr). With `sigterm_after`, SIGTERM follows that step's line."""
+    """Run the train CLI child to its end → (exit code, {step: loss},
+    {step: this process's clock at its line}, the preempted step or None,
+    launches, wall s, s to the first step line, stderr). With
+    `sigterm_after`, SIGTERM follows that step's line, sent to the
+    child's whole process group (its workers too), as a scheduler sends
+    it."""
     import signal
 
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-u", "-c", CK_CHILD, *args],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    losses, preempted, launches, first, lines = {}, None, None, None, []
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        start_new_session=True)
+    losses, at, preempted, launches, first, lines = {}, {}, None, None, \
+        None, []
     imported = in_train = None
     try:
         for line in proc.stderr:
@@ -1084,36 +1091,46 @@ def _train_child(args, sigterm_after=None):
                 if first is None:
                     first, in_train = time.perf_counter() - t0, rec["t"]
                 losses[rec["step"]] = rec["loss"]
+                at[rec["step"]] = time.perf_counter()
                 if rec["step"] == sigterm_after:
-                    proc.send_signal(signal.SIGTERM)
+                    os.killpg(proc.pid, signal.SIGTERM)
             elif "preempted" in rec:
                 preempted = rec["step"]
         rc = proc.wait(timeout=300)
     finally:
         if proc.poll() is None:
-            proc.kill()
-    return dict(rc=rc, losses=losses, preempted=preempted, launches=launches,
+            os.killpg(proc.pid, signal.SIGKILL)
+    return dict(rc=rc, losses=losses, at=at, preempted=preempted,
+                launches=launches,
                 wall_s=time.perf_counter() - t0, first_step_s=first,
                 imported_s=imported, train_to_first_step_s=in_train,
                 stderr="".join(lines[-30:]))
 
 
+def _step_times(r, steps_per_epoch):
+    """A child's step ms (median of the gaps between consecutive step
+    lines within an epoch, its first logged step left out as warm-up) and
+    the ms of each epoch boundary (the gap across it: the last step, the
+    in-training eval and the best checkpoint's save)."""
+    import statistics
+
+    at = r["at"]
+    gaps = {k: (at[k] - at[k - 1]) * 1e3 for k in sorted(at)[1:]
+            if k - 1 in at}
+    within = [g for k, g in gaps.items() if (k - 1) % steps_per_epoch]
+    return statistics.median(within), {
+        k - 1: g for k, g in gaps.items() if not (k - 1) % steps_per_epoch}
+
+
 def checkpoint_phase(dev):
     """Checkpoint directories end to end; see the module's docstring."""
-    import itertools
-
     import numpy as np
     import torch
 
     from drn_tpu_torch import evaluate as port_eval
     from drn_tpu_torch import export, infer, serve
     from drn_tpu_torch.config import get_config
-    from drn_tpu_torch.data.pipeline import (build_vocab, make_batch_iterator,
-                                             make_dataset)
-    from drn_tpu_torch.evaluate import build_model, to_device
-    from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-    from drn_tpu_torch.train import make_optimizer, make_train_step
-    from drn_tpu_torch.utils.profiling import host_ms
+    from drn_tpu_torch.data.pipeline import build_vocab, make_dataset
 
     base = get_config("charades_c3d")
     phase_t0 = time.perf_counter()
@@ -1122,64 +1139,27 @@ def checkpoint_phase(dev):
         cfg = base.replace(data=dataclasses.replace(
             base.data, **fields, batch_size=CK_BATCH))
         vocab = build_vocab(cfg.data, cfg.model)
-        ds = make_dataset(cfg.data, cfg.model, vocab, split="train")
-        steps_per_epoch = -(-len(ds) // CK_BATCH)
-        if steps_per_epoch < 8:
+        steps_per_epoch = -(-len(make_dataset(
+            cfg.data, cfg.model, vocab, split="train")) // CK_BATCH)
+        if steps_per_epoch < 8 or CK_STEPS <= steps_per_epoch:
             raise AssertionError(f"{steps_per_epoch} steps an epoch")
 
-        # The train step fed in process and by 2 workers, streamed.
-        reset_launch_counts()
-        model = build_model(cfg, device=dev, seed=0,
-                            pretrained_embeddings=vocab.embeddings).train()
-        step = make_train_step(cfg, model, make_optimizer(
-            cfg, steps_per_epoch, model))
-        feed = {}
-        for workers in (0, 2):
-            batches = make_batch_iterator(
-                ds, dataclasses.replace(cfg.data, num_workers=workers),
-                shuffle=True, seed=0, pin_memory=True)
-            t0 = time.perf_counter()
-            it = itertools.chain(batches.epoch(0), batches.epoch(1))
-            first = to_device(next(it), dev)  # the pool's start
-            first_batch_s = time.perf_counter() - t0
-            step(first)  # warm-up
-            torch.cuda.synchronize()
-            t0, n = time.perf_counter(), 0
-            for batch in it:  # the rest of two epochs
-                step(to_device(batch, dev))
-                n += 1
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / n
-            batches.close()
-            feed[f"workers_{workers}"] = dict(
-                step_ms=ms, examples_per_s=CK_BATCH / ms * 1e3,
-                first_batch_s=first_batch_s)
-        # Its two parts alone: building a batch in process, and the step
-        # (with its copy) on one batch on the card.
-        it = make_batch_iterator(ds, cfg.data, shuffle=True,
-                                 seed=1).epoch(0)
-        t0 = time.perf_counter()
-        host = [next(it) for _ in range(3)]
-        feed["batch_build_ms"] = (time.perf_counter() - t0) * 1e3 / 3
-        feed["resident_step_ms"] = host_ms(lambda: step(first), 3)
-        feed["copy_ms"] = host_ms(lambda: to_device(host[0], dev), 3)
-        del host, first
-        own = launch_counts()
-        del model, step
-
-        # (a) uninterrupted, (b) SIGTERM'd, (c) (b) again: a resume.
-        def args(d):
+        # (a) uninterrupted, fed in process; (b) fed by 2 workers, sent
+        # SIGTERM; (c) (b) again: a resume. (a) and (c) cross an epoch
+        # boundary, its eval and the best checkpoint's save.
+        def args(d, workers):
             return ["--config", base.name, "--feature-dir",
                     fields["feature_dir"], "--annotation-path",
                     fields["annotation_path"], "--glove-path",
                     fields["glove_path"], "--feature-fps", str(DS_FPS),
-                    "--batch-size", str(CK_BATCH), "--num-workers", "2",
-                    "--max-steps", str(CK_STEPS), "--checkpoint-dir",
-                    os.path.join(root, d)]
+                    "--batch-size", str(CK_BATCH), "--num-workers",
+                    str(workers), "--max-steps", str(CK_STEPS),
+                    "--checkpoint-dir", os.path.join(root, d)]
 
-        runs = {"a": _train_child(args("a")),
-                "b": _train_child(args("b"), sigterm_after=CK_SIGTERM_AFTER),
-                "c": _train_child(args("b"))}
+        runs = {"a": _train_child(args("a", 0)),
+                "b": _train_child(args("b", 2),
+                                  sigterm_after=CK_SIGTERM_AFTER),
+                "c": _train_child(args("b", 2))}
         for name, r in runs.items():
             want_rc = 75 if name == "b" else 0
             if r["rc"] != want_rc or not r["launches"] or not all(
@@ -1213,24 +1193,36 @@ def checkpoint_phase(dev):
         if diff / norm > RESUME_PARAM_REL:
             raise AssertionError(f"resumed parameters: relative L2 "
                                  f"{diff / norm}")
+        feed = {}
+        for name, workers in (("a", 0), ("c", 2)):
+            ms, boundary = _step_times(runs[name], steps_per_epoch)
+            feed[f"workers_{workers}"] = dict(
+                child=name, step_ms=ms, examples_per_s=CK_BATCH / ms * 1e3,
+                epoch_boundary_ms=boundary)
 
-        # The readers of (a)'s directory against its last step file.
-        pth = os.path.join(a_dir, f"{CK_STEPS}.pth")
+        # The readers of (a)'s directory against its step files: best/
+        # (the eval after step 8) where they prefer it, else the latest.
+        best = os.path.join(a_dir, "best", f"{steps_per_epoch}.pth")
+        latest = os.path.join(a_dir, f"{CK_STEPS}.pth")
+        if not os.path.exists(best):
+            raise AssertionError(f"no {best}: {sorted(os.listdir(a_dir))}")
         data_args = ["--annotation-path", fields["annotation_path"],
                      "--glove-path", fields["glove_path"]]
         ev = ["--config", base.name, "--feature-dir", fields["feature_dir"],
               *data_args]
         printed = {}
-        for name, extra in (("pth", ["--torch-checkpoint", pth]),
+        for name, extra in (("best", ["--torch-checkpoint", best]),
                             ("dir", ["--checkpoint-dir", a_dir]),
+                            ("last", ["--torch-checkpoint", latest]),
                             ("latest", ["--checkpoint-dir", a_dir,
                                         "--latest-checkpoint"])):
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 port_eval.main(ev + extra)
             printed[name] = out.getvalue()
-        if not (printed["pth"] == printed["dir"] == printed["latest"]) or \
-                len(printed["pth"].splitlines()) != 7:
+        if printed["best"] != printed["dir"] or \
+                printed["last"] != printed["latest"] or \
+                len(printed["best"].splitlines()) != 7:
             raise AssertionError(f"evaluate printouts differ: {printed}")
 
         scfg = cfg.replace(eval=dataclasses.replace(cfg.eval, batch_size=8))
@@ -1238,7 +1230,7 @@ def checkpoint_phase(dev):
                                         features_root=fields["feature_dir"],
                                         **src)
                     for src in ({"checkpoint_dir": a_dir},
-                                {"torch_checkpoint": pth})]
+                                {"torch_checkpoint": best})]
         reqs = [{"query": q, "features_path": os.path.join(
             fields["feature_dir"], f"V{v:04d}.npy")}
                 for v, q in ((3, "A person opens the door."),
@@ -1251,7 +1243,7 @@ def checkpoint_phase(dev):
 
         outs = {}
         for name, extra in (("dir", ["--checkpoint-dir", a_dir]),
-                            ("pth", ["--torch-checkpoint", pth])):
+                            ("pth", ["--torch-checkpoint", latest])):
             path = os.path.join(root, f"{name}.pt2")
             with contextlib.redirect_stdout(io.StringIO()):
                 export.main(["--config", base.name, "--batch-size", "8",
@@ -1277,7 +1269,7 @@ def checkpoint_phase(dev):
 
         inf = {}
         for name, extra in (("dir", ["--checkpoint-dir", a_dir]),
-                            ("pth", ["--torch-checkpoint", pth])):
+                            ("pth", ["--torch-checkpoint", best])):
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 infer.main(["--config", base.name, "--features",
@@ -1292,7 +1284,7 @@ def checkpoint_phase(dev):
     return dict(
         phase="checkpoint", config=base.name, dataset="charades",
         glove=True, batch_size=CK_BATCH, steps_per_epoch=steps_per_epoch,
-        steps=CK_STEPS, feed=feed, launches=own,
+        steps=CK_STEPS, feed=feed,
         children={k: {f: r[f] for f in ("rc", "wall_s", "first_step_s",
                                          "imported_s",
                                          "train_to_first_step_s",

@@ -11,6 +11,7 @@ batches are the in-process iterator's, one for one.
 
 from __future__ import annotations
 
+import signal
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -146,6 +147,16 @@ class _Batches:
         return collate(self.dataset, indices, self.batch_size)
 
 
+def _ignore_sigterm(worker_id: int) -> None:
+    """A worker's init: SIGTERM ignored. A scheduler that signals every
+    process of the job (Slurm, systemd's control group, `kill -TERM
+    -<pgid>`) must reach the trainer's preemption guard alone; a worker
+    killed by it would make the loader raise in the training loop before
+    the save. The parent stops the workers itself (`close()`), and a
+    worker whose parent died exits on its own."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+
+
 class WorkerBatchIterator(BatchIterator):
     """BatchIterator's batches, built in `num_workers` worker processes
     (torch.utils.data.DataLoader over a batch sampler).
@@ -165,7 +176,8 @@ class WorkerBatchIterator(BatchIterator):
     and torch each) with its own set-up. Nothing of the parent crosses
     but the pickled dataset (a FeatureReader drops its cache and HDF5
     handle on pickling; the native reader is loaded anew in each worker),
-    so no CUDA context and no open handle is inherited. Workers return numpy batches, which
+    so no CUDA context and no open handle is inherited. Workers ignore
+    SIGTERM (`_ignore_sigterm`). Workers return numpy batches, which
     the loader moves through shared memory; with `pin_memory` the main
     process pins them before they are yielded, ready for the copy to the
     card. Batches are yielded as numpy arrays, as BatchIterator's are.
@@ -193,7 +205,7 @@ class WorkerBatchIterator(BatchIterator):
             _Batches(self.dataset, self.batch_size), batch_size=None,
             sampler=self._sampler, num_workers=self.num_workers,
             pin_memory=self.pin_memory, persistent_workers=True,
-            multiprocessing_context="spawn")
+            multiprocessing_context="spawn", worker_init_fn=_ignore_sigterm)
         self._sampler.idle = True
         iter(self._loader)  # spawns the pool; the idle sampler asks nothing
         self._sampler.idle = False

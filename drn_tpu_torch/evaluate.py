@@ -167,25 +167,37 @@ def stage_on_device(dataset, device):
     return torch.from_numpy(table).to(device), view
 
 
+def eval_batches(cfg: ExperimentConfig, dataset, device):
+    """The eval loop's batch iterator over `dataset`: in order, at
+    eval.batch_size, in worker processes when data.num_workers > 0."""
+    return make_batch_iterator(dataset, cfg.data, shuffle=False, seed=0,
+                               batch_size=cfg.eval.batch_size,
+                               pin_memory=device.type == "cuda")
+
+
 def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
              split: str = "test", *, device=None, mesh=None,
-             device_features: bool = False) -> Dict[str, float]:
+             device_features: bool = False,
+             batches=None) -> Dict[str, float]:
     """Full-split evaluation → {"R@n,IoU=m": percentage, "mIoU": ...}.
 
     `device_features` stages each unique video's resampled grid in one
     table on `device` before the loop; the host then feeds word ids and
-    row indices only. The metrics equal the streamed path's."""
+    row indices only. The metrics equal the streamed path's. `batches`
+    (`eval_batches` of the split, in place of `dataset` and
+    `device_features`) is the caller's and stays open, so a caller that
+    evaluates again reuses its worker processes."""
     _refuse_out_of_scope(cfg, mesh, device_features)
     dev = resolve_device(device)
     model.to(dev).eval()
-    if dataset is None:
-        dataset = make_dataset(cfg.data, cfg.model, split=split)
     table = None
-    if device_features:
-        table, dataset = stage_on_device(dataset, dev)
-    batches = make_batch_iterator(dataset, cfg.data, shuffle=False, seed=0,
-                                  batch_size=cfg.eval.batch_size,
-                                  pin_memory=dev.type == "cuda")
+    own = batches is None
+    if own:
+        if dataset is None:
+            dataset = make_dataset(cfg.data, cfg.model, split=split)
+        if device_features:
+            table, dataset = stage_on_device(dataset, dev)
+        batches = eval_batches(cfg, dataset, dev)
     step = make_eval_step(cfg, model)
     totals: Optional[Dict] = None
     n_total = None
@@ -198,7 +210,8 @@ def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
                 totals = {k: totals[k] + v for k, v in counts.items()}
                 n_total = n_total + n_valid
     finally:
-        batches.close()
+        if own:
+            batches.close()
     if totals is None:
         return {}
     n = float(n_total)  # the one device→host fetch of the loop
@@ -260,8 +273,6 @@ def main(argv=None):
     p.add_argument("--feature-dir", default=None)
     p.add_argument("--annotation-path", default=None)
     p.add_argument("--glove-path", default=None)
-    p.add_argument("--num-workers", type=int, default=None,
-                   help="worker processes that build the batches")
     p.add_argument("--latest-checkpoint", action="store_true",
                    help="restore the latest step instead of the "
                         "best-on-val checkpoint (the default when "

@@ -44,9 +44,9 @@ from drn_tpu_torch.config import ExperimentConfig, get_config
 from drn_tpu_torch.data.pipeline import (build_vocab, make_batch_iterator,
                                          make_dataset)
 from drn_tpu_torch.evaluate import (_refuse_out_of_scope, batch_features,
-                                    build_model, evaluate, resolve_device,
-                                    stage_on_device, to_device,
-                                    with_data_flags)
+                                    build_model, eval_batches, evaluate,
+                                    resolve_device, stage_on_device,
+                                    to_device, with_data_flags)
 from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.losses import drn_loss
 from drn_tpu_torch.utils.checkpoint import (BestCheckpointTracker,
@@ -250,7 +250,11 @@ def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None):
     """Periodic eval on the val split (test when there is none), or None
     when neither can be read. A split-less annotation path would score
     the training annotations, so it disables periodic eval. `vocab` is the
-    training vocab, so the word ids match the embedding table."""
+    training vocab, so the word ids match the embedding table. Its batch
+    iterator lives for the run: with data.num_workers > 0 one pool of
+    workers, started by the first eval (not with the run, where its start
+    would slow the training pool's), serves every epoch's eval;
+    `fn.close()` stops it."""
     ann = cfg.data.annotation_path
     if ann and "{split}" not in ann:
         print(f"[train] annotation_path {ann!r} has no '{{split}}' "
@@ -271,12 +275,14 @@ def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None):
     if dataset is None:
         return None
     log = MetricLogger(f"eval/{cfg.name}")
+    batches = eval_batches(cfg, dataset, device)
 
     def fn(model, epoch):
-        results = evaluate(cfg, model, dataset, device=device)
+        results = evaluate(cfg, model, device=device, batches=batches)
         log.log(epoch, results)
         return selection_metric(results)
 
+    fn.close = batches.close
     return fn
 
 
@@ -312,7 +318,7 @@ def train(cfg: ExperimentConfig, *, device=None,
                                   seed=tc.seed,
                                   pin_memory=dev.type == "cuda")
     batches.start()  # worker processes start while the model is built
-    guard = preemption_guard
+    guard, own_eval = preemption_guard, None
     own_guard = guard is None
     if own_guard:
         guard = PreemptionGuard().install()
@@ -359,8 +365,8 @@ def train(cfg: ExperimentConfig, *, device=None,
         if run_info is not None:
             run_info["start_step"] = start_step
 
-        if eval_fn is None:
-            eval_fn = _default_eval_fn(cfg, dev, vocab)
+        if eval_fn is None and tc.eval_every_epochs > 0:
+            eval_fn = own_eval = _default_eval_fn(cfg, dev, vocab)
         best: Optional[BestCheckpointTracker] = None
         train_step = make_train_step(cfg, model, optimizer)
 
@@ -405,6 +411,8 @@ def train(cfg: ExperimentConfig, *, device=None,
         ckpt.save(step, state(step), force=True)
     finally:
         batches.close()
+        if own_eval is not None:
+            own_eval.close()
         log.close()
         if own_guard:
             guard.uninstall()

@@ -84,13 +84,14 @@ def test_a_process_group_of_several_raises(monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is prev
 
 
-def _spawn_trainer(ckpt_dir, max_steps):
+def _spawn_trainer(ckpt_dir, max_steps, *extra, **popen_kw):
     return subprocess.Popen(
         [sys.executable, "-u", "-m", "drn_tpu_torch.train", "--config",
          "synthetic_tiny", "--device", "cpu", "--epochs", "50",
-         "--max-steps", str(max_steps), "--checkpoint-dir", str(ckpt_dir)],
+         "--max-steps", str(max_steps), "--checkpoint-dir", str(ckpt_dir),
+         *extra],
         cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-        text=True)
+        text=True, **popen_kw)
 
 
 def _run(proc, on_line=None):
@@ -145,3 +146,37 @@ def test_sigterm_saves_checkpoint_and_exits_75_then_resumes(tmp_path):
     assert logged == [target], (saved_step, logged)
     steps_after = sorted(int(p.stem) for p in stage_dir.glob("*.pth"))
     assert target in steps_after, (saved_step, steps_after)
+
+
+def test_sigterm_to_the_process_group_spares_the_workers(tmp_path):
+    """A scheduler that signals every process of the job (Slurm, systemd's
+    control group, `kill -TERM -<pgid>`) reaches the loader's worker
+    processes too: they ignore it, so the trainer still saves the step it
+    logged as preempted and exits 75, and no process of the group is left
+    afterwards."""
+    ckpt_dir = tmp_path / "ckpt"
+    proc = _spawn_trainer(ckpt_dir, 100_000, "--num-workers", "2",
+                          start_new_session=True)
+    sent = []
+
+    def on_line(line):
+        if not sent and '"step": 1,' in line:
+            sent.append(True)
+            os.killpg(proc.pid, signal.SIGTERM)
+
+    rc, lines = _run(proc, on_line)
+    assert sent and rc == PREEMPTED_EXIT_CODE, "".join(lines[-20:])
+    preempted = [json.loads(l) for l in lines if '"preempted"' in l]
+    assert len(preempted) == 1
+    saved = ckpt_dir / "synthetic_tiny" / "stage1" / \
+        f"{preempted[0]['step']}.pth"
+    assert torch.load(saved, weights_only=True)["step"] == \
+        preempted[0]["step"]
+    deadline = time.time() + 30
+    while True:
+        try:
+            os.killpg(proc.pid, 0)
+        except ProcessLookupError:
+            break
+        assert time.time() < deadline, "processes of the group outlived it"
+        time.sleep(0.1)

@@ -191,3 +191,35 @@ def test_evaluate_with_workers_equals_in_process():
     got = port_eval.evaluate(cfg.replace(data=dataclasses.replace(
         cfg.data, num_workers=2)), model, device="cpu")
     assert got == want
+
+
+def test_in_training_eval_keeps_one_worker_pool(tmp_path, monkeypatch):
+    """Two epochs, each followed by the val-split eval: with workers the
+    run starts two pools (train, eval) and no more, and each eval's
+    metrics equal the in-process run's."""
+    cfg = get_config("synthetic_tiny")
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_examples=16),
+        train=dataclasses.replace(cfg.train, checkpoint_dir=str(tmp_path),
+                                  num_epochs=2, eval_every_epochs=1))
+    pools, results = [], []
+    start = WorkerBatchIterator.start
+
+    def counting_start(self):
+        if self._loader is None:
+            pools.append(self)
+        start(self)
+
+    def recording_evaluate(*a, **kw):
+        results.append(port_eval.evaluate(*a, **kw))
+        return results[-1]
+
+    monkeypatch.setattr(WorkerBatchIterator, "start", counting_start)
+    monkeypatch.setattr(port_train, "evaluate", recording_evaluate)
+    port_train.train(cfg, device="cpu")
+    want, results[:] = list(results), []
+    port_train.train(cfg.replace(
+        data=dataclasses.replace(cfg.data, num_workers=2),
+        train=dataclasses.replace(cfg.train, resume=False)), device="cpu")
+    assert len(pools) == 2 and len(want) == 2
+    assert results == want

@@ -3,15 +3,14 @@ PyTorch port reads: the inverse of `python -m drn_tpu.parity.convert`.
 
     python tools/orbax_to_pth.py --config charades_c3d \\
         --checkpoint-dir /ckpt/charades_c3d/stage1 --out /ckpt_pth/stage1 \\
-        [--step N] [--glove-path G --annotation-path A]
+        [--glove-path G --annotation-path A]
 
 Runs where the JAX package is installed (JAX, Orbax, torch): it restores
 the params alone (`drn_tpu.utils.checkpoint.CheckpointManager`, a partial
 restore into the config's parameter tree) and converts them with
 `drn_tpu_torch.convert.flax_params_to_state_dict`. It writes
 
-    <out>/<step>.pth              {"model", "step"}: the latest step, or
-                                  --step
+    <out>/<step>.pth              {"model", "step"}: the latest step
     <out>/best/<step>.pth         {"model", "step", "val_metric"}, when the
                                   source has a best-on-val checkpoint
     <out>/experiment_config.json  the source's, copied
@@ -33,7 +32,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _restore(directory: str, template, step=None, with_metric=False):
+def _restore(directory: str, template, with_metric=False):
     """{"params"[, "val_metric"]} of `directory`'s step (latest by
     default), host numpy leaves; None when the directory has no step."""
     import jax
@@ -42,7 +41,7 @@ def _restore(directory: str, template, step=None, with_metric=False):
 
     mgr = CheckpointManager(directory)
     try:
-        step = mgr.latest_step() if step is None else step
+        step = mgr.latest_step()
         if step is None:
             return None, None
         want = {"params": template}
@@ -70,8 +69,6 @@ def main(argv=None) -> None:
                    help="the JAX package's Orbax checkpoint directory")
     p.add_argument("--out", required=True,
                    help="the port's checkpoint directory to write")
-    p.add_argument("--step", type=int, default=None,
-                   help="the step to convert (default: the latest)")
     p.add_argument("--glove-path", default=None)
     p.add_argument("--annotation-path", default=None)
     args = p.parse_args(argv)
@@ -94,7 +91,7 @@ def main(argv=None) -> None:
     model = build_model(cfg, pretrained_embeddings=vocab.embeddings)
     template = jax.device_get(init_params(cfg, model, jax.random.key(0)))
 
-    restored, step = _restore(args.checkpoint_dir, template, args.step)
+    restored, step = _restore(args.checkpoint_dir, template)
     if restored is None:
         raise FileNotFoundError(f"no checkpoint in {args.checkpoint_dir}")
     _save({"model": flax_params_to_state_dict(restored["params"], cfg.model),
