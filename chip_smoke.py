@@ -109,6 +109,27 @@ non-zero exit code:
               outputs bit-equal to 10.pth's) and `infer` (the same top
               segments as best/8.pth's). Every child launches the four
               package kernels (each prints its launch counts).
+ 10. ddp      data parallel (parallel/mesh.py, the trainer's DDP path)
+              on the one card: (a) the train CLI with `--distributed`
+              through the launcher users run (`python -m
+              torch.distributed.run --standalone --nproc_per_node=1`), a
+              process group of one over NCCL, with the `checkpoint`
+              phase's child (a)'s arguments on the corpus written again
+              from its seed: its losses against that child's (world size
+              1: equal, within TRAIN_LOSS_RTOL), the four package kernels
+              launched, and the step ms of both from their step lines;
+              (b) two ranks on the card over gloo (NCCL refuses two ranks
+              on one device), spawned with torch.multiprocessing, each
+              calling `train(mesh=make_mesh())` on the flagship model at
+              B=384 (192 rows a rank) on the synthetic fixture, 3 steps,
+              the second batch ragged (rank 0 holds 192 valid rows, rank
+              1 24): the global losses within TRAIN_LOSS_RTOL of one
+              process's `train()` at B=384 from the same seed, every
+              kernel launched on each rank; then `evaluate(mesh=...)` on
+              both ranks of rank 0's checkpoint (the last batch's block of
+              rank 1 is padding alone): equal metrics on both, within one
+              query of one process evaluating the same checkpoint. Step
+              times are records beside the card's name, not claims.
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -173,6 +194,10 @@ RESUME_PARAM_REL = 1e-3
 # 384 examples), steps (past the first epoch's end and its eval), the step
 # after which (b) is sent SIGTERM.
 CK_BATCH, CK_STEPS, CK_SIGTERM_AFTER = 48, 10, 3
+# The ddp phase's part (b): ranks, global batch, steps, and the fixture's
+# size (two batches an epoch, the second of 216 rows: 192 on rank 0 and 24
+# on rank 1; its test split's last eval batch of 24 rows is all rank 0's).
+DDP_RANKS, DDP_BATCH, DDP_STEPS, DDP_EXAMPLES = 2, 384, 3, 600
 
 CONFIG = "charades_c3d_batched_eval"
 EXAMPLES = 120  # 48 + 48 + 24: three eval steps, the last one padded
@@ -1059,21 +1084,32 @@ PACKAGE_KERNELS = ("fused_stem", "fused_fusion_block", "conv_ln_relu",
                    "fused_fusion")
 
 
-def _train_child(args, sigterm_after=None):
+def _train_child(args, sigterm_after=None, launcher=None):
     """Run the train CLI child to its end → (exit code, {step: loss},
     {step: this process's clock at its line}, the preempted step or None,
     launches, wall s, s to the first step line, stderr). With
     `sigterm_after`, SIGTERM follows that step's line, sent to the
     child's whole process group (its workers too), as a scheduler sends
-    it."""
+    it. `launcher` (a command that takes a script, its arguments after
+    it) runs CK_CHILD from a file in place of `python -c`."""
     import signal
 
     t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+    if launcher:
+        with tempfile.NamedTemporaryFile("w", suffix=".py", delete=False,
+                                         prefix="drn_ck_child_") as f:
+            f.write(CK_CHILD)
+        cmd = [*launcher, f.name, *args]
+        # The script's directory, not the repository, heads its sys.path.
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH")) if p)
+    else:
+        cmd = [sys.executable, "-u", "-c", CK_CHILD, *args]
     proc = subprocess.Popen(
-        [sys.executable, "-u", "-c", CK_CHILD, *args],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        start_new_session=True)
+        cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        cwd=repo, start_new_session=True, env=env)
     losses, at, preempted, launches, first, lines = {}, {}, None, None, \
         None, []
     imported = in_train = None
@@ -1100,6 +1136,8 @@ def _train_child(args, sigterm_after=None):
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
+        if launcher:
+            os.unlink(f.name)
     return dict(rc=rc, losses=losses, at=at, preempted=preempted,
                 launches=launches,
                 wall_s=time.perf_counter() - t0, first_step_s=first,
@@ -1120,6 +1158,16 @@ def _step_times(r, steps_per_epoch):
     within = [g for k, g in gaps.items() if (k - 1) % steps_per_epoch]
     return statistics.median(within), {
         k - 1: g for k, g in gaps.items() if not (k - 1) % steps_per_epoch}
+
+
+def _ck_args(base, fields, ckpt_dir, workers):
+    """The `checkpoint` phase's train CLI arguments: `base` on the corpus
+    `fields`, GloVe mode, B=CK_BATCH, CK_STEPS steps."""
+    return ["--config", base.name, "--feature-dir", fields["feature_dir"],
+            "--annotation-path", fields["annotation_path"], "--glove-path",
+            fields["glove_path"], "--feature-fps", str(DS_FPS),
+            "--batch-size", str(CK_BATCH), "--num-workers", str(workers),
+            "--max-steps", str(CK_STEPS), "--checkpoint-dir", ckpt_dir]
 
 
 def checkpoint_phase(dev):
@@ -1148,13 +1196,7 @@ def checkpoint_phase(dev):
         # SIGTERM; (c) (b) again: a resume. (a) and (c) cross an epoch
         # boundary, its eval and the best checkpoint's save.
         def args(d, workers):
-            return ["--config", base.name, "--feature-dir",
-                    fields["feature_dir"], "--annotation-path",
-                    fields["annotation_path"], "--glove-path",
-                    fields["glove_path"], "--feature-fps", str(DS_FPS),
-                    "--batch-size", str(CK_BATCH), "--num-workers",
-                    str(workers), "--max-steps", str(CK_STEPS),
-                    "--checkpoint-dir", os.path.join(root, d)]
+            return _ck_args(base, fields, os.path.join(root, d), workers)
 
         runs = {"a": _train_child(args("a", 0)),
                 "b": _train_child(args("b", 2),
@@ -1300,6 +1342,210 @@ def checkpoint_phase(dev):
         device=torch.cuda.get_device_name(0))
 
 
+@contextlib.contextmanager
+def _recorded_steps():
+    """{step: (loss, host clock at its record)} of every record the
+    trainer logs while the context lasts, at full precision (the
+    MetricLogger rounds what it prints; rank 1 prints nothing)."""
+    from drn_tpu_torch.utils.logging import MetricLogger
+
+    rec, log = {}, MetricLogger.log
+
+    def recording(self, step, metrics):
+        if "loss" in metrics:
+            rec[step] = (float(metrics["loss"]), time.perf_counter())
+        log(self, step, metrics)
+
+    MetricLogger.log = recording
+    try:
+        yield rec
+    finally:
+        MetricLogger.log = log
+
+
+def _ddp_config(ckpt_dir):
+    """The ddp phase's part (b): the flagship model on the synthetic
+    fixture at B=DDP_BATCH, logging every step, no periodic eval."""
+    from drn_tpu_torch.config import get_config
+
+    base = get_config(CONFIG)
+    return base.replace(
+        data=dataclasses.replace(base.data, dataset="synthetic",
+                                 batch_size=DDP_BATCH,
+                                 synthetic_examples=DDP_EXAMPLES),
+        train=dataclasses.replace(base.train, checkpoint_dir=ckpt_dir,
+                                  log_every_steps=1, eval_every_epochs=0))
+
+
+def _ddp_rank(rank, world, port, root):
+    """One rank of the ddp phase's part (b), spawned: it joins the gloo
+    group itself, trains DDP_STEPS steps on the card with the group's
+    mesh, evaluates the model over the group, and writes
+    `<root>/rank<r>.json`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        from drn_tpu_torch import train as port_train
+        from drn_tpu_torch.evaluate import evaluate
+        from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+        from drn_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh()
+        cfg = _ddp_config(os.path.join(root, "ranks"))
+        with _recorded_steps() as rec:
+            reset_launch_counts()
+            model = port_train.train(cfg, device="cuda", mesh=mesh,
+                                     max_steps=DDP_STEPS)
+            launches = launch_counts()
+        results = evaluate(cfg, model, device="cuda", mesh=mesh)
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(dict(rank=rank, world=mesh.world, launches=launches,
+                           losses={k: v[0] for k, v in rec.items()},
+                           at={k: v[1] for k, v in rec.items()},
+                           results=results), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _median_gap_ms(at):
+    """The median ms between consecutive step records (the first step, a
+    warm-up, left out)."""
+    import statistics
+
+    at = {int(k): v for k, v in at.items()}
+    steps = sorted(at)[1:]
+    return statistics.median((at[b] - at[a]) * 1e3 for a, b in
+                             zip(steps, steps[1:])) if len(steps) > 1 \
+        else None
+
+
+def ddp_phase(ck_line):
+    """Data parallel on the one card; see the module's docstring.
+    `ck_line` is the `checkpoint` phase's line (its config, its child
+    (a)'s losses and step ms)."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from drn_tpu_torch import train as port_train
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.evaluate import build_model, evaluate
+
+    base = get_config(ck_line["config"])
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="drn_ddp_") as root:
+        # (a) A group of one over NCCL, through torchrun, against the
+        # checkpoint phase's child (a), fed in process like it.
+        fields = write_corpus(root, base.model.feature_dim)
+        a = _train_child(
+            ["--distributed",
+             *_ck_args(base, fields, os.path.join(root, "a"), 0)],
+            launcher=[sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node=1"])
+        if a["rc"] != 0 or not a["launches"] or not all(
+                a["launches"][k] for k in PACKAGE_KERNELS):
+            raise AssertionError(f"torchrun child exited {a['rc']}, "
+                                 f"launches {a['launches']}:\n"
+                                 f"{a['stderr']}")
+        want = ck_line["losses"]["a"]
+        if sorted(a["losses"]) != sorted(want):
+            raise AssertionError(f"torchrun child logged steps "
+                                 f"{sorted(a['losses'])}, not "
+                                 f"{sorted(want)}")
+        a_rel = max(abs(v - want[k]) / abs(want[k])
+                    for k, v in a["losses"].items())
+        if a_rel > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"DDP at world size 1: losses "
+                                 f"{a['losses']} against {want}")
+        a_ms, _ = _step_times(a, ck_line["steps_per_epoch"])
+
+        # (b) Two ranks on the card over gloo, against one process.
+        torch.cuda.empty_cache()  # the ranks' memory is their own
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_ddp_rank, args=(DDP_RANKS, port, root),
+                                 nprocs=DDP_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            deadline = time.monotonic() + 600
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError("ddp ranks still running after "
+                                         "600 s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DDP_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for r in ranks:
+            if not all(r["launches"].get(k) for k in PACKAGE_KERNELS):
+                raise AssertionError(f"rank {r['rank']} launches "
+                                     f"{r['launches']}")
+        if any(r["losses"] != ranks[0]["losses"] or
+               r["results"] != ranks[0]["results"] for r in ranks):
+            raise AssertionError(f"the ranks disagree: {ranks}")
+
+        cfg = _ddp_config(os.path.join(root, "one"))
+        with _recorded_steps() as rec:
+            port_train.train(cfg, device="cuda", max_steps=DDP_STEPS)
+        one = {str(k): v[0] for k, v in rec.items()}
+        b_loss = ranks[0]["losses"]
+        if sorted(b_loss) != sorted(one) or len(one) != DDP_STEPS:
+            raise AssertionError(f"steps {sorted(b_loss)} vs {sorted(one)}")
+        b_rel = max(abs(v - one[k]) / abs(one[k]) for k, v in b_loss.items())
+        if b_rel > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"2 ranks' losses {b_loss} against one "
+                                 f"process's {one}")
+        # One process evaluates what rank 0 saved, with the ranks' data.
+        model = build_model(cfg, device="cuda")
+        model.load_state_dict(torch.load(
+            os.path.join(root, "ranks", cfg.name, "stage1",
+                         f"{DDP_STEPS}.pth"), weights_only=True)["model"])
+        single = evaluate(cfg, model, device="cuda")
+        slack = 100.0 / DDP_EXAMPLES + 1e-6
+        eval_diff = max(abs(ranks[0]["results"][k] - v)
+                        for k, v in single.items())
+        if set(single) != set(ranks[0]["results"]) or eval_diff > slack:
+            raise AssertionError(f"2-rank evaluate {ranks[0]['results']} "
+                                 f"against one process's {single}")
+
+    return dict(
+        phase="ddp",
+        torchrun=dict(config=base.name, world=1, backend="nccl",
+                      batch_size=CK_BATCH, steps=CK_STEPS,
+                      losses=a["losses"], loss_rel_vs_in_process=a_rel,
+                      step_ms=a_ms,
+                      in_process_step_ms=ck_line["feed"]["workers_0"][
+                          "step_ms"],
+                      wall_s=a["wall_s"], first_step_s=a["first_step_s"],
+                      launches=a["launches"]),
+        gloo=dict(config=CONFIG, ranks=DDP_RANKS, backend="gloo",
+                  batch_size=DDP_BATCH, rows_a_rank=DDP_BATCH // DDP_RANKS,
+                  examples=DDP_EXAMPLES, steps=DDP_STEPS, losses=b_loss,
+                  one_process_losses=one, loss_rel_vs_one_process=b_rel,
+                  step_ms=_median_gap_ms(ranks[0]["at"]),
+                  one_process_step_ms=_median_gap_ms(
+                      {k: v[1] for k, v in rec.items()}),
+                  launches=[r["launches"] for r in ranks],
+                  results=ranks[0]["results"], one_process_results=single,
+                  eval_max_diff=eval_diff, eval_slack=slack,
+                  ranks_wall_s=ranks_s),
+        phase_s=time.perf_counter() - phase_t0,
+        device=torch.cuda.get_device_name(0))
+
+
 def main() -> int:
     import torch
 
@@ -1339,7 +1585,9 @@ def main() -> int:
     emit(dataset_phase(base, dev))
     emit(serve_phase(base, dev))
     emit(export_phase(base, dev))
-    emit(checkpoint_phase(dev))
+    ck_line = checkpoint_phase(dev)
+    emit(ck_line)
+    emit(ddp_phase(ck_line))
     # Each kernel's launches on its main path: the eval step's kernels in
     # the `main` run, `fused_fusion` (backward only) in the `train` run,
     # `pallas_block` in the `probe` run.

@@ -127,7 +127,9 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout (the port runs one device in this slice)."""
+    """Device-mesh layout. The port runs the data axis as a process group
+    (parallel/mesh.py); model_axis or time_axis > 1 raises (ROADMAP.md §A
+    item 5)."""
 
     data_axis: int = -1              # -1 → all remaining devices
     model_axis: int = 1

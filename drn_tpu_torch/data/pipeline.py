@@ -7,6 +7,14 @@ query_mask[:, 0] = True (LSTM lengths >= 1) and gt_grid = [0, 1].
 `data.num_workers > 0` builds the batches in worker processes
 (`WorkerBatchIterator`, in place of the JAX package's Grain loader); the
 batches are the in-process iterator's, one for one.
+
+Data parallel (`rank`, `world`): every rank walks the same global batches
+(the same order, the same `len()`, so no rank runs out of steps before
+the others) and collates only its block of each (parallel/mesh.py::
+row_block), `batch_size / world` rows; the blocks of all ranks make the
+padded global batch. The port has no Grain, so there are no per-process
+record shards of unequal length and nothing like the JAX package's
+`lockstep_epoch` to pad them.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import numpy as np
 from drn_tpu_torch.config import DataConfig, ModelConfig
 from drn_tpu_torch.data.datasets import load_dataset, parse_examples
 from drn_tpu_torch.data.vocab import Vocab, tokenize
+from drn_tpu_torch.parallel.mesh import row_block
 
 
 def build_vocab(cfg: DataConfig, mcfg: ModelConfig) -> Vocab:
@@ -76,22 +85,31 @@ def epoch_order(n: int, shuffle: bool, seed: int, epoch_idx: int
 
 def collate(dataset, indices, batch_size: int) -> Dict[str, np.ndarray]:
     """The batch of `dataset`'s examples `indices`, padded to
-    `batch_size`."""
-    rows = [dataset[int(i)] for i in indices]
-    batch = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+    `batch_size`. No indices (a rank's block past a ragged batch's end):
+    padding rows alone, shaped after example 0."""
+    rows = [dataset[int(i)] for i in indices] or [dataset[0]]
+    batch = {k: np.stack([r[k] for r in rows])[:len(indices)]
+             for k in rows[0]}
     return _pad_batch_rows(batch, batch_size)
 
 
 class BatchIterator:
-    """Deterministic epoch iterator over a dataset of example dicts."""
+    """Deterministic epoch iterator over a dataset of example dicts:
+    `batch_size` is the global batch, of which rank `rank` of `world`
+    collates its block."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, drop_remainder: bool = False):
+                 seed: int = 0, drop_remainder: bool = False,
+                 rank: int = 0, world: int = 1):
+        assert batch_size % world == 0, (
+            f"batch_size {batch_size} does not split over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_remainder = drop_remainder
+        self.rank, self.world = rank, world
+        self.local_batch_size = batch_size // world
 
     def __len__(self):
         n, b = len(self.dataset), self.batch_size
@@ -107,10 +125,16 @@ class BatchIterator:
         for off in range(skip_batches * b, stop, b):
             yield idx[off:off + b].tolist()
 
+    def rank_indices(self, epoch_idx: int = 0, skip_batches: int = 0
+                     ) -> Iterator[List[int]]:
+        """This rank's block of each of `batch_indices`' lists."""
+        for indices in self.batch_indices(epoch_idx, skip_batches):
+            yield row_block(indices, self.rank, self.world, self.batch_size)
+
     def epoch(self, epoch_idx: int = 0, skip_batches: int = 0
               ) -> Iterator[Dict[str, np.ndarray]]:
-        for indices in self.batch_indices(epoch_idx, skip_batches):
-            yield collate(self.dataset, indices, self.batch_size)
+        for indices in self.rank_indices(epoch_idx, skip_batches):
+            yield collate(self.dataset, indices, self.local_batch_size)
 
     def start(self) -> None:
         pass
@@ -121,7 +145,7 @@ class BatchIterator:
 
 class _EpochSampler:
     """The batch sampler of a WorkerBatchIterator: the index lists of
-    `BatchIterator.batch_indices` for the epoch and skip last set."""
+    `BatchIterator.rank_indices` for the epoch and skip last set."""
 
     def __init__(self, order: BatchIterator):
         self.order = order
@@ -131,7 +155,7 @@ class _EpochSampler:
     def __iter__(self):
         if self.idle:
             return iter(())
-        return self.order.batch_indices(self.epoch_idx, self.skip)
+        return self.order.rank_indices(self.epoch_idx, self.skip)
 
 
 class _Batches:
@@ -159,9 +183,10 @@ def _ignore_sigterm(worker_id: int) -> None:
 
 class WorkerBatchIterator(BatchIterator):
     """BatchIterator's batches, built in `num_workers` worker processes
-    (torch.utils.data.DataLoader over a batch sampler).
+    (torch.utils.data.DataLoader over a batch sampler); a rank's workers
+    read its rows alone.
 
-    The sampler yields exactly `BatchIterator.batch_indices`: the same
+    The sampler yields exactly `BatchIterator.rank_indices`: the same
     `default_rng(seed + epoch)` order, the same slices, the same padding.
     Because the order is a function of (seed, epoch) alone, a mid-epoch
     resume (`epoch(e, skip_batches=k)`) starts the sampler at batch k: no
@@ -185,8 +210,10 @@ class WorkerBatchIterator(BatchIterator):
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_remainder: bool = False,
-                 num_workers: int = 2, pin_memory: bool = False):
-        super().__init__(dataset, batch_size, shuffle, seed, drop_remainder)
+                 num_workers: int = 2, pin_memory: bool = False,
+                 rank: int = 0, world: int = 1):
+        super().__init__(dataset, batch_size, shuffle, seed, drop_remainder,
+                         rank, world)
         if num_workers < 1:
             raise ValueError(f"num_workers={num_workers}: use BatchIterator")
         self.num_workers = num_workers
@@ -202,7 +229,7 @@ class WorkerBatchIterator(BatchIterator):
         from torch.utils.data import DataLoader
 
         self._loader = DataLoader(
-            _Batches(self.dataset, self.batch_size), batch_size=None,
+            _Batches(self.dataset, self.local_batch_size), batch_size=None,
             sampler=self._sampler, num_workers=self.num_workers,
             pin_memory=self.pin_memory, persistent_workers=True,
             multiprocessing_context="spawn", worker_init_fn=_ignore_sigterm)
@@ -227,12 +254,16 @@ class WorkerBatchIterator(BatchIterator):
 
 def make_batch_iterator(dataset, cfg: DataConfig, *, shuffle: bool,
                         seed: int, batch_size: Optional[int] = None,
-                        pin_memory: bool = False) -> BatchIterator:
+                        pin_memory: bool = False, rank: int = 0,
+                        world: int = 1) -> BatchIterator:
     """Worker processes when `cfg.num_workers > 0`, in process otherwise;
-    the same batches either way. `batch_size` defaults to the config's."""
+    the same batches either way. `batch_size` (the global batch) defaults
+    to the config's; rank `rank` of `world` gets its block of each."""
     b = batch_size or cfg.batch_size
     if cfg.num_workers > 0:
         return WorkerBatchIterator(dataset, b, shuffle=shuffle, seed=seed,
                                    num_workers=cfg.num_workers,
-                                   pin_memory=pin_memory)
-    return BatchIterator(dataset, b, shuffle=shuffle, seed=seed)
+                                   pin_memory=pin_memory, rank=rank,
+                                   world=world)
+    return BatchIterator(dataset, b, shuffle=shuffle, seed=seed, rank=rank,
+                         world=world)

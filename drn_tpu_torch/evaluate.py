@@ -16,8 +16,11 @@ the same.
 `best/` first unless `--latest-checkpoint`); an Orbax directory is refused
 with the name of its converter, tools/orbax_to_pth.py.
 
-Out of scope, and refused rather than ignored: multi-process runs and a
-device mesh (ROADMAP.md, multi-GPU).
+Data parallel (`evaluate(mesh=...)`, or any evaluation inside an
+initialised process group; parallel/mesh.py): each rank runs its row
+block of every batch, and one all-reduce of the counts after the loop
+gives every rank the same metrics, each example counted once. Staging
+(`device_features`) in a group of more than one process is refused.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.layers import KERNEL_OPS, Ops
 from drn_tpu_torch.ops.metrics import metric_name, recall_at_n
 from drn_tpu_torch.ops.nms import batched_temporal_nms
+from drn_tpu_torch.parallel.mesh import Mesh, all_sum, current_mesh
 from drn_tpu_torch.utils.checkpoint import restore_params
 
 
@@ -144,18 +148,19 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
-def _refuse_out_of_scope(cfg: ExperimentConfig, mesh, device_features) -> None:
-    if mesh is not None:
-        raise NotImplementedError("evaluate(mesh=...): the port runs one "
-                                  "device so far (ROADMAP.md, multi-GPU)")
-    if device_features and cfg.data.dataset == "synthetic":
+def _refuse_out_of_scope(cfg: ExperimentConfig, mesh: Optional[Mesh],
+                        device_features: bool) -> None:
+    if not device_features:
+        return
+    if cfg.data.dataset == "synthetic":
         raise ValueError("device_features reads per-video feature files; "
                          "the synthetic fixture generates features in "
                          "memory")
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("multi-process evaluation is not ported "
-                                  "yet (ROADMAP.md, multi-GPU)")
+    if mesh is not None and mesh.world > 1:
+        raise NotImplementedError(
+            "device_features in a process group of more than one process: "
+            "each rank would stage every video for its row blocks; stream "
+            "the features instead (ROADMAP.md, multi-GPU)")
 
 
 def stage_on_device(dataset, device):
@@ -167,16 +172,46 @@ def stage_on_device(dataset, device):
     return torch.from_numpy(table).to(device), view
 
 
-def eval_batches(cfg: ExperimentConfig, dataset, device):
+def eval_batches(cfg: ExperimentConfig, dataset, device,
+                 mesh: Optional[Mesh] = None):
     """The eval loop's batch iterator over `dataset`: in order, at
-    eval.batch_size, in worker processes when data.num_workers > 0."""
+    eval.batch_size, in worker processes when data.num_workers > 0; with
+    a `mesh`, this rank's block of each batch."""
     return make_batch_iterator(dataset, cfg.data, shuffle=False, seed=0,
                                batch_size=cfg.eval.batch_size,
-                               pin_memory=device.type == "cuda")
+                               pin_memory=device.type == "cuda",
+                               rank=mesh.rank if mesh else 0,
+                               world=mesh.world if mesh else 1)
+
+
+def eval_counts(cfg: ExperimentConfig, model: DRN, batches, device, *,
+                table: Optional[torch.Tensor] = None,
+                mesh: Optional[Mesh] = None
+                ) -> Tuple[Dict[Tuple[int, float], float], float]:
+    """The recall counts and the count of valid queries over an epoch of
+    `batches` (this rank's blocks under a `mesh`), summed over the mesh's
+    ranks: every rank returns the same numbers. The counts stay on the
+    device through the loop; one fetch at the end."""
+    step = make_eval_step(cfg, model)
+    totals = None
+    for batch in batches.epoch(0):
+        counts, n_valid, *_ = step(to_device(batch, device), table)
+        if totals is None:
+            keys = sorted(counts, key=str)
+            totals = torch.stack([n_valid] + [counts[k] for k in keys])
+        else:
+            totals = totals + torch.stack([n_valid]
+                                          + [counts[k] for k in keys])
+    if totals is None:
+        return {}, 0.0
+    if mesh is not None:
+        totals = all_sum(totals, mesh.group)
+    n, *rest = totals.double().cpu().tolist()
+    return dict(zip(keys, rest)), n
 
 
 def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
-             split: str = "test", *, device=None, mesh=None,
+             split: str = "test", *, device=None, mesh: Optional[Mesh] = None,
              device_features: bool = False,
              batches=None) -> Dict[str, float]:
     """Full-split evaluation → {"R@n,IoU=m": percentage, "mIoU": ...}.
@@ -186,9 +221,14 @@ def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
     row indices only. The metrics equal the streamed path's. `batches`
     (`eval_batches` of the split, in place of `dataset` and
     `device_features`) is the caller's and stays open, so a caller that
-    evaluates again reuses its worker processes."""
+    evaluates again reuses its worker processes. Under a `mesh` (by
+    default the initialised process group's, parallel/mesh.py) each rank
+    evaluates its row blocks and every rank returns the whole split's
+    metrics."""
+    mesh = mesh or current_mesh()
     _refuse_out_of_scope(cfg, mesh, device_features)
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None
+                         else getattr(mesh, "device", None))
     model.to(dev).eval()
     table = None
     own = batches is None
@@ -197,26 +237,15 @@ def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
             dataset = make_dataset(cfg.data, cfg.model, split=split)
         if device_features:
             table, dataset = stage_on_device(dataset, dev)
-        batches = eval_batches(cfg, dataset, dev)
-    step = make_eval_step(cfg, model)
-    totals: Optional[Dict] = None
-    n_total = None
+        batches = eval_batches(cfg, dataset, dev, mesh)
     try:
-        for batch in batches.epoch(0):
-            counts, n_valid, *_ = step(to_device(batch, dev), table)
-            if totals is None:
-                totals, n_total = counts, n_valid
-            else:
-                totals = {k: totals[k] + v for k, v in counts.items()}
-                n_total = n_total + n_valid
+        totals, n = eval_counts(cfg, model, batches, dev, table=table,
+                                mesh=mesh)
     finally:
         if own:
             batches.close()
-    if totals is None:
-        return {}
-    n = float(n_total)  # the one device→host fetch of the loop
-    return {metric_name(k): 100.0 * float(v) / max(n, 1.0)
-            for k, v in sorted(totals.items(), key=str)}
+    return {metric_name(k): 100.0 * v / max(n, 1.0)
+            for k, v in totals.items()}
 
 
 def predict(cfg: ExperimentConfig, model: DRN, batch: Dict[str, np.ndarray],

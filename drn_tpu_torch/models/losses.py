@@ -16,7 +16,7 @@ grid:
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -65,14 +65,28 @@ def focal_bce(logits: torch.Tensor, targets: torch.Tensor, alpha: float,
     return a_t * ((1 - p_t) ** gamma) * ce
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def drn_loss(cfg: ModelConfig, tcfg: TrainConfig,
              outputs: Dict[str, torch.Tensor], locations: torch.Tensor,
              level_ids: torch.Tensor, gt: torch.Tensor, base_len: int,
-             valid: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             valid: Optional[torch.Tensor] = None,
+             global_sum: Optional[Callable[[torch.Tensor], torch.Tensor]]
+             = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and per-term metrics (device tensors). `gt` (B, 2) in
     base-grid units; `valid` (B,) masks the padding rows of a ragged
-    batch."""
+    batch.
+
+    `global_sum` sums a scalar over a data-parallel group (the identity by
+    default). The normalisers, the count of positives and the IoU head's
+    Σw, are then the global batch's, each clamped to ≥ 1 after the sum,
+    as under the JAX package's SPMD step: the loss a rank returns is its
+    rows' share, and Σ over the ranks of it (and of every metric but
+    num_pos, which is global) is the global batch's."""
+    if global_sum is None:
+        global_sum = _identity
     b, _ = outputs["match_logits"].shape
     if valid is None:
         valid = torch.ones((b,), dtype=torch.bool, device=gt.device)
@@ -80,7 +94,7 @@ def drn_loss(cfg: ModelConfig, tcfg: TrainConfig,
 
     pos = assign_targets(cfg, locations, level_ids, gt, base_len) & vrow
     posf = pos.float()
-    num_pos = posf.sum().clamp_min(1.0)
+    num_pos = global_sum(posf.sum()).clamp_min(1.0)
 
     segs = decode_segments(locations, outputs["d_start"], outputs["d_end"],
                            float(base_len), clip=False)
@@ -96,7 +110,8 @@ def drn_loss(cfg: ModelConfig, tcfg: TrainConfig,
     iou_target = temporal_iou(outputs["segments"], gt[:, None, :])
     iou_pred = torch.sigmoid(outputs["iou_logits"])
     w = torch.where(pos, 1.0, 0.1) * vrow
-    iou_loss = (w * (iou_pred - iou_target) ** 2).sum() / w.sum().clamp_min(1.0)
+    iou_loss = ((w * (iou_pred - iou_target) ** 2).sum()
+                / global_sum(w.sum()).clamp_min(1.0))
 
     stage2 = float(tcfg.stage >= 2)
     total = (tcfg.match_loss_weight * match_loss

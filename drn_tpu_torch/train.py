@@ -1,9 +1,11 @@
-"""Training (port of drn_tpu/train.py): the two-stage recipe on one device.
+"""Training (port of drn_tpu/train.py): the two-stage recipe, on one device
+or data parallel over a process group.
 
     python -m drn_tpu_torch.train --config synthetic_tiny --max-steps 3 \\
         --device cpu --checkpoint-dir /tmp/ckpt
     python -m drn_tpu_torch.train --config synthetic_tiny --stage 2 \\
         --init-from /tmp/ckpt/synthetic_tiny/stage1
+    torchrun --nproc_per_node=N -m drn_tpu_torch.train --distributed ...
 
 A step is forward → `drn_loss` → backward through the kernels' autograd
 Functions (ops/cuda/autograd.py) → the optimizer, which reproduces the JAX
@@ -24,21 +26,33 @@ rerun the same command to resume (`train.resume` is the default), mid-epoch
 without reading the examples already consumed. `--tensorboard-dir` writes
 the logged metrics as TensorBoard scalars too.
 
-Out of scope, and refused rather than ignored: a device mesh and
-multi-process runs (ROADMAP.md, multi-GPU).
+Data parallel (`--distributed`, one process per GPU from torchrun's
+environment; `train(mesh=...)`; parallel/mesh.py): the model is wrapped
+in DistributedDataParallel, each rank trains on its row block of the same
+global batch, and the loss is the global batch's (`loss_and_grads`).
+Rank 0 alone writes checkpoints, `best/` and the logs; the checkpoint is
+the bare model's state_dict, so a directory that N ranks wrote is read
+unchanged by one process (resume, evaluate, infer, serve, export) and the
+other way round. A preemption stops every rank at the same step, and
+every rank exits 75. Tensor and sequence parallelism (`--model-axis`,
+`--time-axis` > 1) raise (ROADMAP.md §A item 5), as `--device-features`
+in a group of more than one process does.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import os
 import sys
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch.nn.parallel import DistributedDataParallel
 
 from drn_tpu_torch.config import ExperimentConfig, get_config
 from drn_tpu_torch.data.pipeline import (build_vocab, make_batch_iterator,
@@ -49,6 +63,9 @@ from drn_tpu_torch.evaluate import (_refuse_out_of_scope, batch_features,
                                     to_device, with_data_flags)
 from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.losses import drn_loss
+from drn_tpu_torch.parallel.mesh import (Mesh, all_sum, barrier, check_axes,
+                                         current_mesh, init_distributed,
+                                         make_mesh)
 from drn_tpu_torch.utils.checkpoint import (BestCheckpointTracker,
                                             CheckpointManager,
                                             check_experiment_config,
@@ -190,14 +207,19 @@ def make_optimizer(cfg: ExperimentConfig, steps_per_epoch: int,
     """The optimizer of `cfg` over `model`'s trained parameters. Stage 2
     with `stage2_iou_only` trains the IoU head alone: every other parameter
     gets requires_grad False (so no backward is spent on it) and stays
-    bit-identical."""
+    bit-identical. The frozen GloVe table is in the optimizer (a zero
+    gradient, as in the JAX package's chain) but requires no gradient:
+    the model reads it detached, and DistributedDataParallel would wait
+    for a gradient that never comes."""
     t = cfg.train
     iou_only = t.stage >= 2 and t.stage2_iou_only
+    frozen = {"embed.weight"} if model.query_encoder.freeze_embeddings \
+        else set()
     trained = {}
     for name, p in model.state_dict(keep_vars=True).items():
         train_it = not name.endswith(_CONSTANT_SUFFIX) and (
             not iou_only or model.owner(name) == "iou_head")
-        p.requires_grad_(train_it)
+        p.requires_grad_(train_it and name not in frozen)
         if train_it:
             trained[name] = p
     return Optimizer(cfg, steps_per_epoch, trained)
@@ -209,16 +231,41 @@ def loss_and_grads(cfg: ExperimentConfig, model: DRN,
                    ) -> Dict[str, torch.Tensor]:
     """Forward, `drn_loss`, backward: every trained parameter's `.grad`
     holds its gradient afterwards. A batch without features gathers them
-    from the staged `table`. Returns the loss metrics as device tensors."""
-    for p in model.parameters():
+    from the staged `table`. Returns the loss metrics as device tensors.
+
+    `model` may be a DistributedDataParallel of the DRN, each rank holding
+    its row block of the global batch: the loss's normalisers are then
+    summed over the group, so each rank's loss is its rows' share of the
+    global batch's, and the backward runs on world · loss, so that DDP's
+    mean of the ranks' gradients is the gradient of the global loss. The
+    metrics returned are this rank's shares (`global_metrics` sums
+    them)."""
+    net, world, global_sum = model, 1, None
+    if isinstance(model, DistributedDataParallel):
+        net, group = model.module, model.process_group
+        world = dist.get_world_size(group)
+        global_sum = lambda t: all_sum(t, group)  # noqa: E731
+    for p in net.parameters():
         p.grad = None
     out = model(batch_features(batch, table), batch["word_ids"],
                 batch["query_mask"])
-    loss, metrics = drn_loss(cfg.model, cfg.train, out, model.locations,
-                             model.level_ids, batch["gt_grid"],
-                             cfg.data.num_clips, batch["valid"])
-    loss.backward()
+    loss, metrics = drn_loss(cfg.model, cfg.train, out, net.locations,
+                             net.level_ids, batch["gt_grid"],
+                             cfg.data.num_clips, batch["valid"],
+                             global_sum=global_sum)
+    (loss * world if world > 1 else loss).backward()
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor],
+                   mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """A data-parallel step's metrics for the global batch: the ranks'
+    shares summed (one all-reduce), num_pos already global."""
+    if mesh is None:
+        return metrics
+    keys = [k for k in metrics if k != "num_pos"]
+    summed = all_sum(torch.stack([metrics[k] for k in keys]), mesh.group)
+    return {**metrics, **dict(zip(keys, summed))}
 
 
 def make_train_step(cfg: ExperimentConfig, model: DRN, optimizer: Optimizer
@@ -246,7 +293,8 @@ def selection_metric(results: Optional[Dict[str, float]]) -> Optional[float]:
     return float(np.mean(r1 if r1 else list(results.values())))
 
 
-def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None):
+def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None,
+                     mesh: Optional[Mesh] = None):
     """Periodic eval on the val split (test when there is none), or None
     when neither can be read. A split-less annotation path would score
     the training annotations, so it disables periodic eval. `vocab` is the
@@ -254,7 +302,8 @@ def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None):
     iterator lives for the run: with data.num_workers > 0 one pool of
     workers, started by the first eval (not with the run, where its start
     would slow the training pool's), serves every epoch's eval;
-    `fn.close()` stops it."""
+    `fn.close()` stops it. Under a `mesh` every rank evaluates its row
+    blocks and gets the whole split's metrics (evaluate.eval_counts)."""
     ann = cfg.data.annotation_path
     if ann and "{split}" not in ann:
         print(f"[train] annotation_path {ann!r} has no '{{split}}' "
@@ -275,10 +324,11 @@ def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None):
     if dataset is None:
         return None
     log = MetricLogger(f"eval/{cfg.name}")
-    batches = eval_batches(cfg, dataset, device)
+    batches = eval_batches(cfg, dataset, device, mesh)
 
     def fn(model, epoch):
-        results = evaluate(cfg, model, device=device, batches=batches)
+        results = evaluate(cfg, model, device=device, batches=batches,
+                           mesh=mesh)
         log.log(epoch, results)
         return selection_metric(results)
 
@@ -286,11 +336,28 @@ def _default_eval_fn(cfg: ExperimentConfig, device, vocab=None):
     return fn
 
 
+def _ddp(model: DRN, dev: torch.device, mesh: Mesh
+         ) -> DistributedDataParallel:
+    """`model` in DistributedDataParallel over the mesh's group. Made after
+    `make_optimizer`: DDP reduces the parameters that then require a
+    gradient. Every one of them gets one in every step (the stage-1 IoU
+    head a zero gradient, through stage2 · iou_loss), so DDP looks for no
+    unused parameter. The buffers are constants of the grid: no sync in
+    the forward (the flag's name changed in recent PyTorch)."""
+    sync = ("forward_sync_buffers" if "forward_sync_buffers" in
+            inspect.signature(DistributedDataParallel).parameters
+            else "broadcast_buffers")
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.index is not None else None,
+        process_group=mesh.group, find_unused_parameters=False,
+        **{sync: False})
+
+
 def train(cfg: ExperimentConfig, *, device=None,
           init_from: Optional[str] = None, max_steps: Optional[int] = None,
           eval_fn=None, preemption_guard: Optional[PreemptionGuard] = None,
           allow_config_mismatch: bool = False,
-          run_info: Optional[dict] = None, mesh=None,
+          run_info: Optional[dict] = None, mesh: Optional[Mesh] = None,
           device_features: bool = False) -> DRN:
     """A full training run on `device` (cuda by default); returns the
     trained model. `run_info` (a caller's dict) receives `start_step`, the
@@ -303,9 +370,18 @@ def train(cfg: ExperimentConfig, *, device=None,
     SIGTERM stops the loop at the next step boundary: the run logs
     {"preempted": 1.0}, skips the eval and force-saves the step. Pass an
     installed `preemption_guard` to read `guard.triggered` afterwards;
-    without one the run installs its own."""
+    without one the run installs its own.
+
+    Data parallel under a `mesh` (by default the initialised process
+    group's, parallel/mesh.py): every rank calls `train` with the same
+    config; the model returned is the bare DRN, the same on every rank.
+    Rank 0 writes the directory; every rank returns after the final save
+    is on disk."""
+    mesh = mesh or current_mesh()
     _refuse_out_of_scope(cfg, mesh, device_features)
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None
+                         else getattr(mesh, "device", None))
+    rank0 = mesh is None or mesh.rank == 0
     tc = cfg.train
     log = MetricLogger(f"train/{cfg.name}/stage{tc.stage}",
                        tensorboard_dir=tc.tensorboard_dir)
@@ -316,7 +392,9 @@ def train(cfg: ExperimentConfig, *, device=None,
         table, dataset = stage_on_device(dataset, dev)
     batches = make_batch_iterator(dataset, cfg.data, shuffle=True,
                                   seed=tc.seed,
-                                  pin_memory=dev.type == "cuda")
+                                  pin_memory=dev.type == "cuda",
+                                  rank=mesh.rank if mesh else 0,
+                                  world=mesh.world if mesh else 1)
     batches.start()  # worker processes start while the model is built
     guard, own_eval = preemption_guard, None
     own_guard = guard is None
@@ -354,21 +432,24 @@ def train(cfg: ExperimentConfig, *, device=None,
                 model.load_state_dict(restored["model"])
                 optimizer.load_state_dict(restored["optimizer"])
                 start_step = int(restored["step"])
-        else:
+        elif rank0:
             stale = load_experiment_config(ckpt_dir)
             if stale is not None and config_parity_diffs(stale, cfg):
                 print(f"[train] WARNING: {ckpt_dir!r} holds the provenance "
                       "of a parity-different config "
                       f"({stale.get('name', '?')!r}); overwriting it. Its "
                       "checkpoints belong to the old config.", flush=True)
-        save_experiment_config(ckpt_dir, cfg)
+        barrier("train_restored")  # every rank has read the directory
+        if rank0:
+            save_experiment_config(ckpt_dir, cfg)
         if run_info is not None:
             run_info["start_step"] = start_step
 
         if eval_fn is None and tc.eval_every_epochs > 0:
-            eval_fn = own_eval = _default_eval_fn(cfg, dev, vocab)
+            eval_fn = own_eval = _default_eval_fn(cfg, dev, vocab, mesh)
         best: Optional[BestCheckpointTracker] = None
-        train_step = make_train_step(cfg, model, optimizer)
+        net = model if mesh is None else _ddp(model, dev, mesh)
+        train_step = make_train_step(cfg, net, optimizer)
 
         def state(step):
             return {"model": model.state_dict(), "optimizer":
@@ -388,8 +469,9 @@ def train(cfg: ExperimentConfig, *, device=None,
                 metrics = train_step(to_device(batch, dev), table)
                 step += 1
                 if step % tc.log_every_steps == 0 or step == 1:
-                    log.log(step, {"epoch": epoch, **metrics})
-                if ckpt.should_save(step):
+                    log.log(step, {"epoch": epoch,
+                                   **global_metrics(metrics, mesh)})
+                if rank0 and ckpt.should_save(step):
                     ckpt.save(step, state(step))
                 if max_steps is not None and step >= max_steps:
                     done = True
@@ -403,12 +485,14 @@ def train(cfg: ExperimentConfig, *, device=None,
             if (eval_fn is not None and not done and tc.eval_every_epochs > 0
                     and (epoch + 1) % tc.eval_every_epochs == 0):
                 val = eval_fn(model, epoch)
-                if val is not None:
+                if val is not None and rank0:
                     best = best or BestCheckpointTracker(ckpt_dir)
                     if best.update(step, model.state_dict(), val):
                         log.log(step, {"epoch": epoch,
                                        "best_val_metric": val})
-        ckpt.save(step, state(step), force=True)
+        if rank0:
+            ckpt.save(step, state(step), force=True)
+        barrier("train_saved")  # the directory is whole for every rank
     finally:
         batches.close()
         if own_eval is not None:
@@ -494,11 +578,26 @@ def main(argv=None):
                         "one table on the device before training "
                         "(V*num_clips*F*4 bytes of device memory); epochs "
                         "then read nothing from disk")
+    p.add_argument("--model-axis", type=int, default=None,
+                   help="tensor-parallel axis size (default: the config's "
+                        "MeshConfig.model_axis); > 1 is not ported")
+    p.add_argument("--time-axis", type=int, default=None,
+                   help="sequence-parallel axis size (default: the "
+                        "config's MeshConfig.time_axis); > 1 is not ported")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel, one process per GPU: join the "
+                        "process group from torchrun's environment (RANK, "
+                        "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); "
+                        "NCCL on cuda, gloo with --device cpu")
     p.add_argument("--device", default=None,
                    help="torch device; cuda when omitted")
     args = p.parse_args(argv)
 
     cfg = with_data_flags(get_config(args.config), args)
+    check_axes(cfg.mesh.model_axis if args.model_axis is None
+               else args.model_axis,
+               cfg.mesh.time_axis if args.time_axis is None
+               else args.time_axis)
     tr, da = {}, {}
     if args.stage is not None:
         tr["stage"] = args.stage
@@ -525,14 +624,25 @@ def main(argv=None):
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, **da))
     if args.preflight:
         preflight(cfg, args.preflight_sample)
-    with PreemptionGuard() as guard:
-        train(cfg, device=args.device, init_from=args.init_from,
-              max_steps=args.max_steps, preemption_guard=guard,
-              allow_config_mismatch=args.allow_config_mismatch,
-              device_features=args.device_features)
+    device, mesh, info = args.device, None, {}
+    if args.distributed:
+        device = init_distributed(args.device)
+        mesh = make_mesh()
+    try:
+        with PreemptionGuard() as guard:
+            train(cfg, device=device, init_from=args.init_from,
+                  max_steps=args.max_steps, preemption_guard=guard,
+                  allow_config_mismatch=args.allow_config_mismatch,
+                  run_info=info, mesh=mesh,
+                  device_features=args.device_features)
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
     if guard.triggered:
-        # EX_TEMPFAIL: the step is saved; rerunning the command resumes.
-        print("preempted: state saved; rerun to resume", file=sys.stderr)
+        # EX_TEMPFAIL, on every rank: the step is saved; rerunning the
+        # command resumes.
+        print(f"preempted at step {info['step']}: state saved; rerun to "
+              "resume", file=sys.stderr)
         sys.exit(exit_code_for(guard))
 
 

@@ -3,7 +3,8 @@ call on stderr and, with a `tensorboard_dir`, the same numbers as
 TensorBoard scalars in `<tensorboard_dir>/<prefix>` (through
 `torch.utils.tensorboard`, which needs the `tensorboard` package: without
 it a logger asked for TensorBoard raises). Only rank 0 of a process group
-writes the event file."""
+prints the records and writes the event file: the trainer logs metrics
+that are the same on every rank."""
 
 from __future__ import annotations
 
@@ -27,12 +28,15 @@ class MetricLogger:
         self.prefix = prefix
         self._t0 = time.monotonic()
         self._tb = None
-        if tensorboard_dir and _rank() == 0:
+        self._quiet = _rank() != 0
+        if tensorboard_dir and not self._quiet:
             from torch.utils.tensorboard import SummaryWriter
 
             self._tb = SummaryWriter(log_dir=f"{tensorboard_dir}/{prefix}")
 
     def log(self, step: int, metrics: Dict[str, Any]) -> None:
+        if self._quiet:
+            return
         rec = {"t": round(time.monotonic() - self._t0, 2),
                "tag": self.prefix, "step": step}
         floats = {}

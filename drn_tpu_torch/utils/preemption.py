@@ -7,10 +7,16 @@ step (`preempted_at`); the trainer then force-saves {model, optimizer,
 step} and `main` exits with `exit_code_for(guard)`, so a rerun (resume is
 the config default) continues from that exact step.
 
-One process only. The JAX package's multi-process regime (every process
-agreeing on the step through the coordination service's sync point) has
-no counterpart here until the port runs data parallel: a guard installed
-in a `torch.distributed` group of more than one process raises.
+In a process group of more than one process (data parallel, parallel/
+mesh.py) the processes must stop at the same step: a signal reaches them
+at different steps, or reaches one of them alone, and a rank that stopped
+early would leave the others waiting in the next step's all-reduce. So
+`preempted_at` takes the MAX of the local flags over the group's gloo
+side group, on a CPU tensor, at every step boundary: every rank sees the
+stop at the first boundary after any rank got the signal (the JAX
+package's multi-process regime reaches the same through the coordination
+service's sync point). The flags never travel through the card, so the
+poll does not wait for the step's kernels.
 """
 
 from __future__ import annotations
@@ -19,14 +25,7 @@ import signal
 import threading
 from typing import Optional
 
-import torch
-
-
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+from drn_tpu_torch.parallel.mesh import any_rank
 
 
 class PreemptionGuard:
@@ -45,11 +44,6 @@ class PreemptionGuard:
         """Chain the flag-setter in front of any existing handler. Signal
         handlers work in the main thread only: elsewhere (a train() driven
         from another thread) the guard never triggers rather than crash."""
-        if _world_size() > 1:
-            raise NotImplementedError(
-                "PreemptionGuard in a process group of world size > 1: "
-                "the processes must agree on the step to stop at, which "
-                "needs the port's data-parallel path (ROADMAP.md)")
         try:
             for s in self._signals:
                 self._prev[s] = signal.signal(s, self._on_signal)
@@ -82,8 +76,10 @@ class PreemptionGuard:
             prev(signum, frame)
 
     def preempted_at(self, step: int) -> bool:
-        """True once the run should stop and save at `step`."""
-        hit = self._flag.is_set()
+        """True once the run should stop and save at `step`; in a process
+        group, on every rank at the same step (every rank must poll at
+        every step boundary)."""
+        hit = any_rank(self._flag.is_set())
         if hit:
             self.triggered = True
         return hit

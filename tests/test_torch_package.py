@@ -3,8 +3,10 @@ nothing of JAX nor of `drn_tpu`, and its entry points refuse to run on the
 CPU unless asked to."""
 
 import dataclasses
+import datetime
 import os
 import re
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +18,7 @@ import torch
 import drn_tpu.config as jax_config
 import drn_tpu_torch.config as port_config
 from drn_tpu_torch import evaluate as port_eval
+from drn_tpu_torch.parallel import make_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "drn_tpu_torch").rglob("*.py")) + [
@@ -128,22 +131,32 @@ def test_evaluate_on_the_cpu_when_asked():
 
 
 def test_out_of_scope_options_raise(tmp_path):
-    """Refused rather than ignored: a mesh; staging the synthetic fixture
-    (it has no feature files) and a real dataset without its annotation
-    files raise too, as do a missing checkpoint directory and an Orbax
-    one (naming its converter). Worker processes are in scope: the same
-    metrics as in process."""
+    """Refused rather than ignored: staging the synthetic fixture (it has
+    no feature files) and a real dataset without its annotation files
+    raise, as do a missing checkpoint directory and an Orbax one (naming
+    its converter). Worker processes and a mesh are in scope: the same
+    metrics as in process, the mesh's from a gloo group of this process
+    alone (its counts all-reduced; two ranks: tests/test_torch_parallel.py)."""
     cfg = port_config.get_config("synthetic_tiny")
     cfg = cfg.replace(data=dataclasses.replace(cfg.data,
                                                synthetic_examples=12))
     model = port_eval.build_model(cfg, device="cpu")
     with pytest.raises(ValueError, match="synthetic"):
         port_eval.evaluate(cfg, model, device="cpu", device_features=True)
-    with pytest.raises(NotImplementedError):
-        port_eval.evaluate(cfg, model, device="cpu", mesh=object())
+    want = port_eval.evaluate(cfg, model, device="cpu")
     assert port_eval.evaluate(cfg.replace(data=dataclasses.replace(
-        cfg.data, num_workers=2)), model, device="cpu") == \
-        port_eval.evaluate(cfg, model, device="cpu")
+        cfg.data, num_workers=2)), model, device="cpu") == want
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        assert port_eval.evaluate(cfg, model, device="cpu",
+                                  mesh=make_mesh()) == want
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(FileNotFoundError, match="annotation file"):
         port_eval.evaluate(port_config.get_config("charades_c3d"), model,
                            device="cpu")

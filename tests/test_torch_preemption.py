@@ -73,15 +73,32 @@ def test_guard_degrades_off_main_thread():
 
 
 def test_a_process_group_of_several_raises(monkeypatch):
-    """More than one process must agree on the step to stop at; until the
-    port runs data parallel, a guard there raises instead of saving at
-    mismatched steps."""
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    """More than one process must agree on the step to stop at: the
+    guard installs there, and its poll is the MAX of the ranks' flags
+    (here a stand-in for the group, in which a peer got the signal), so
+    this rank stops at the same step with no signal of its own. What a
+    group of several still refuses: staging the features
+    (device_features), before any read. (tests/test_torch_parallel.py
+    signals one of two real ranks.)"""
+    polled = []
+    monkeypatch.setattr(P, "any_rank",
+                        lambda flag: polled.append(flag) or True)
     prev = signal.getsignal(signal.SIGTERM)
-    with pytest.raises(NotImplementedError, match="world size > 1"):
-        P.PreemptionGuard().install()
+    with P.PreemptionGuard() as g:
+        assert g.installed and not g.triggered
+        assert g.preempted_at(3) and g.triggered
+    assert polled == [False]  # no local signal: the peer's flag stopped it
     assert signal.getsignal(signal.SIGTERM) is prev
+
+    from drn_tpu_torch import train as port_train
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.parallel.mesh import Mesh
+
+    two = Mesh(rank=0, world=2, local_rank=0, device=None, group=None,
+               flags=None)
+    with pytest.raises(NotImplementedError, match="device_features"):
+        port_train.train(get_config("charades_c3d"), device="cpu", mesh=two,
+                         device_features=True)
 
 
 def _spawn_trainer(ckpt_dir, max_steps, *extra, **popen_kw):

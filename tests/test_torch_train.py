@@ -14,7 +14,10 @@ its gradient's scale, so an element whose gradient is as small as the fp32
 summation noise can move by a different fraction of a step.
 """
 
+import contextlib
 import dataclasses
+import datetime
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +42,7 @@ from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
 from drn_tpu_torch.evaluate import to_device
 from drn_tpu_torch.models import DRN, location_metadata
 from drn_tpu_torch.models.losses import assign_targets, drn_loss
+from drn_tpu_torch.parallel import make_mesh
 
 EXAMPLES = 16  # two batches of 8: steps_per_epoch 2
 
@@ -356,23 +360,51 @@ def test_main_trains_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_out_of_scope_options_raise(tmp_path):
-    """A mesh is refused. Worker processes are in scope: one step fed by
-    them saves what the in-process step saves. (TensorBoard, refused here
-    before, is held by tests/test_torch_tensorboard.py.)"""
+    """Tensor and sequence parallelism are refused (ROADMAP.md §A item 5).
+    Worker processes and a mesh are in scope: one step fed by workers,
+    and one step data parallel in a gloo group of this process alone (the
+    model in DistributedDataParallel), save what the in-process step
+    saves, bit for bit. (TensorBoard, refused here before, is held by
+    tests/test_torch_tensorboard.py; two ranks by
+    tests/test_torch_parallel.py.)"""
     cfg = _loop_config(tmp_path)
-    with pytest.raises(NotImplementedError):
-        port_train.train(cfg, device="cpu", mesh=object())
+    for flag in ("--model-axis", "--time-axis"):
+        with pytest.raises(NotImplementedError, match="§A item 5"):
+            port_train.main(["--config", "synthetic_tiny", flag, "2",
+                             "--device", "cpu"])
     port_train.train(cfg, device="cpu", max_steps=1)
     other = tmp_path / "workers"
     port_train.train(cfg.replace(
         data=dataclasses.replace(cfg.data, num_workers=2),
         train=dataclasses.replace(cfg.train, checkpoint_dir=str(other))),
         device="cpu", max_steps=1)
+    ddp = tmp_path / "ddp"
+    with _group_of_one():
+        port_train.train(cfg.replace(train=dataclasses.replace(
+            cfg.train, checkpoint_dir=str(ddp))), device="cpu",
+            max_steps=1, mesh=make_mesh())
     sub = f"{cfg.name}/stage1/1.pth"
     want = torch.load(tmp_path / sub, weights_only=True)["model"]
-    got = torch.load(other / sub, weights_only=True)["model"]
-    for k, v in want.items():
-        torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
+    for d in (other, ddp):
+        got = torch.load(d / sub, weights_only=True)["model"]
+        assert list(got) == list(want)  # no "module." prefix
+        for k, v in want.items():
+            torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
+
+
+@contextlib.contextmanager
+def _group_of_one():
+    """A gloo process group of this process alone, destroyed after."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_overfit_halves_the_loss():
