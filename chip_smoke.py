@@ -130,6 +130,29 @@ non-zero exit code:
               rank 1 is padding alone): equal metrics on both, within one
               query of one process evaluating the same checkpoint. Step
               times are records beside the card's name, not claims.
+ 11. bench    the port's benchmark as users run it, `python -m
+              drn_tpu_torch.bench` in a child process (bench.py's method:
+              chained data-dependent steps, one host sync a chain):
+              `--iters BENCH_ITERS` (eval q/s at B=48, mfu, the train
+              step's examples/s and mfu at B=384, vs_baseline against the
+              PyTorch-CPU reference), then `--latency` (B=1) and
+              `--all-configs --skip-train --skip-torch` (bench.py's five
+              configs); every stdout line a contract line with bench.py's
+              keys, every number positive and finite, and each run's
+              launch counts (its stderr line) equal to the launches a step
+              of each path times the steps it reports. Its line puts the
+              contract numbers beside the `main` phase's step_qps and the
+              card's name and power limit.
+ 12. probes   the probes of the host path and the train step, in this
+              process: `probes.host_pipeline` (its own corpus, written by
+              its `build_corpus` at the dataset phase's size: 128 videos,
+              3 queries each, 96-160 rows at F=4096; BatchIterator native
+              and NumPy, 2 workers; the eval rate measured on the card) and
+              `probes.staged_eval` (streamed and staged `evaluate()` on such
+              a corpus: equal metrics, or it raises; the launches of every
+              step it ran), then `probes.train_probe` and
+              `probes.train_mfu` (every probe) at B=384 with short chains;
+              each probe's rows, the package kernels launched.
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -222,6 +245,17 @@ DS_NOT_IN_GLOVE = {"sneezes", "undresses", "tidies", "vacuum"}  # → UNK
 SERVE_VIDEO_IDS = 8
 SERVE_CONCURRENCY = (1, 16, 64)
 SERVE_LOAD_S = 3.0
+
+# The bench phase's chains: `--iters` of the throughput run (the train chain
+# takes half), of `--latency`, of `--all-configs`.
+BENCH_ITERS, LATENCY_ITERS, ALL_CONFIGS_ITERS = 24, 32, 4
+CONTRACT_KEYS = ["metric", "value", "unit", "vs_baseline", "mfu",
+                 "train_examples_per_sec", "train_mfu", "iters"]
+# The probes phase: the host path's corpus (the dataset phase's size), the
+# chains of the train-step probes.
+PROBE_CORPUS = ["--videos", str(DS_VIDEOS), "--rows", "96,160",
+                "--queries-per-video", str(DS_QUERIES)]
+PROBE_ITERS = 2
 
 
 def emit(obj) -> None:
@@ -1546,6 +1580,209 @@ def ddp_phase(ck_line):
         device=torch.cuda.get_device_name(0))
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+
+
+def _expected_launches(model, steps):
+    """The package kernels' launches of `steps` = {"eval": n, "train": m}
+    steps of each path."""
+    want = Counter()
+    for path, per_step in (("eval", eval_launches_per_step),
+                           ("train", train_launches_per_step)):
+        for k, n in per_step(model).items():
+            want[k] += n * steps.get(path, 0)
+    return dict(want)
+
+
+def _bench_child(*flags):
+    """`python -m drn_tpu_torch.bench *flags` → (its stdout lines, each a
+    JSON object; its stderr records of launches; of measurements; wall
+    s). Every launch record must equal the launches a step of each path
+    times the steps it reports."""
+    from drn_tpu_torch.config import get_config
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "drn_tpu_torch.bench", *flags],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {' '.join(flags)} exited "
+                             f"{proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+    out = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    recs = [json.loads(ln) for ln in proc.stderr.splitlines()
+            if ln.startswith("{")]
+    runs = [r for r in recs if "launches" in r]
+    for r in runs:
+        want = _expected_launches(get_config(r["config"]).model, r["steps"])
+        if r["launches"] != want or not r["steps"].get("eval"):
+            raise AssertionError(f"bench {r['config']}: launches "
+                                 f"{r['launches']}, expected {want} for "
+                                 f"{r['steps']} steps")
+    return out, runs, [r for r in recs if "measurement" in r], wall
+
+
+def _positive(line, keys):
+    bad = {k: line.get(k) for k in keys if not (
+        isinstance(line.get(k), (int, float)) and math.isfinite(line[k])
+        and line[k] > 0)}
+    if bad:
+        raise AssertionError(f"not positive and finite: {bad} in {line}")
+
+
+def bench_phase(main_line):
+    """The port's benchmark in child processes; see the module's
+    docstring. `main_line` is the `main` phase's line."""
+    from drn_tpu_torch.bench import ALL_CONFIGS
+
+    phase_t0 = time.perf_counter()
+    out, runs, meas, wall = _bench_child("--iters", str(BENCH_ITERS))
+    if len(out) != 2 or len(runs) != 1 or any(
+            list(ln) != CONTRACT_KEYS for ln in out):
+        raise AssertionError(f"bench stdout {out}")
+    contract = out[-1]
+    if contract["metric"] != \
+            "charades_sta_grounding_queries_per_sec_per_chip" or \
+            contract["iters"] != BENCH_ITERS:
+        raise AssertionError(f"bench contract line {contract}")
+    _positive(contract, ("value", "mfu", "train_examples_per_sec",
+                         "train_mfu", "vs_baseline"))
+    lat, lat_runs, lat_meas, lat_wall = _bench_child(
+        "--latency", "--iters", str(LATENCY_ITERS))
+    if len(lat) != 1 or lat[0]["metric"] != \
+            f"{CONFIG}_single_query_latency_us" or len(lat_runs) != 1:
+        raise AssertionError(f"bench --latency stdout {lat}")
+    _positive(lat[0], ("value",))
+    every, every_runs, every_meas, every_wall = _bench_child(
+        "--all-configs", "--skip-train", "--skip-torch", "--iters",
+        str(ALL_CONFIGS_ITERS))
+    names = [r["config"] for r in every_runs]
+    metrics = [ln["metric"] for ln in every]
+    if names != list(ALL_CONFIGS) or metrics != [
+            "charades_sta_grounding_queries_per_sec_per_chip"] + [
+            f"{n}_grounding_queries_per_sec_per_chip" for n in names[1:]]:
+        raise AssertionError(f"bench --all-configs: {names}, {metrics}")
+    for ln in every:
+        _positive(ln, ("value",))
+    ev, tr = (next(m for m in meas if m["measurement"] == k)
+              for k in ("eval", "train"))
+    pick = ("batch_size", "iters", "steps", "step_ms", "k1_ms",
+            "flops_per_step", "mfu")
+    return dict(
+        phase="bench", contract=contract,
+        eval={k: ev[k] for k in pick}, train={k: tr[k] for k in pick},
+        launches=runs[0]["launches"], steps=runs[0]["steps"],
+        latency=dict(line=lat[0], step_ms=lat_meas[0]["step_ms"],
+                     steps=lat_runs[0]["steps"]),
+        all_configs=[dict(line=ln, batch_size=m["batch_size"],
+                          step_ms=m["step_ms"], mfu=m["mfu"],
+                          launches=r["launches"])
+                     for ln, m, r in zip(every, every_meas, every_runs)],
+        main_step_qps=main_line["step_qps"],
+        main_step_ms=main_line["step_ms"],
+        child_wall_s=dict(bench=wall, latency=lat_wall,
+                          all_configs=every_wall),
+        phase_s=time.perf_counter() - phase_t0, card=card(),
+        device=ev["device"])
+
+
+def _run_probe(module, argv):
+    """`module.main(argv)` in this process → (its stdout's JSON lines, its
+    stderr's, the package kernels' launches of the run)."""
+    from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    out, err = io.StringIO(), _Tee(sys.stderr)
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = module.main(argv)
+    launches = launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} returned {rc}")
+    as_json = lambda text: [json.loads(ln) for ln in text.splitlines()
+                            if ln.startswith("{")]
+    return as_json(out.getvalue()), as_json("".join(err.text)), launches
+
+
+def probes_phase():
+    """The host-path and train-step probes; see the module's docstring."""
+    import torch
+
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.probes import (host_pipeline, staged_eval, train_mfu,
+                                      train_probe)
+
+    phase_t0 = time.perf_counter()
+    model = get_config("charades_c3d").model
+    with tempfile.TemporaryDirectory(prefix="drn_probes_") as root:
+        out, err, launches = _run_probe(host_pipeline, [
+            "--out", os.path.join(root, "host"), *PROBE_CORPUS,
+            "--workers", "2", "--iters", "8"])
+        *host_rows, host = out
+        qps_rec = next(r for r in err if r.get("measurement") == "eval")
+        if len(host_rows) != 10 or host["device_qps_source"] != "measured" \
+                or any(r["examples"] != DS_VIDEOS * DS_QUERIES
+                       for r in host_rows) or launches != \
+                _expected_launches(model, {"eval": qps_rec["steps"]}):
+            raise AssertionError(f"host_pipeline: {out}, launches "
+                                 f"{launches}")
+        host_s = time.perf_counter() - phase_t0
+
+        t0 = time.perf_counter()
+        epochs = 2
+        out, err, launches = _run_probe(staged_eval, [
+            "--out", os.path.join(root, "staged"), *PROBE_CORPUS,
+            "--epochs", str(epochs)])
+        staged = out[-1]
+        # Two warm-up steps, then (2 streamed + the staged) evaluate calls.
+        steps = 2 + (2 + epochs) * -(-DS_VIDEOS * DS_QUERIES // get_config(
+            "charades_c3d").eval.batch_size)
+        if not staged["metrics_match"] or launches != _expected_launches(
+                model, {"eval": steps}):
+            raise AssertionError(f"staged_eval: {staged}, launches "
+                                 f"{launches}, expected {steps} steps")
+        staged_s = time.perf_counter() - t0
+
+    train_rows = {}
+    for module, argv in (
+            (train_probe, []),
+            (train_mfu, ["--probes", ",".join(train_mfu.PROBES)])):
+        t0 = time.perf_counter()
+        out, _, launches = _run_probe(module, [
+            "--batch-size", str(TRAIN_BATCH), "--iters", str(PROBE_ITERS),
+            *argv])
+        if not out or not all(launches[k] for k in PACKAGE_KERNELS) or \
+                not all(r["ms"] > 0 for r in out):
+            raise AssertionError(f"{module.__name__}: {out}, launches "
+                                 f"{launches}")
+        train_rows[module.__name__.rsplit(".", 1)[1]] = dict(
+            rows=out, launches=launches, s=time.perf_counter() - t0)
+    pick = lambda r, keys: {k: r[k] for k in keys}
+    return dict(
+        phase="probes",
+        host_pipeline=dict(
+            rows=[pick(r, ("pipeline", "native_reader", "feature_cache_mb",
+                           "epoch", "examples_per_s", "corpus_mb_per_s",
+                           "seconds")) for r in host_rows],
+            **pick(host, ("corpus_examples", "unique_bytes_per_example_mb",
+                          "best_warm", "device_qps", "host_to_device_ratio",
+                          "implied_end_to_end_qps", "native_build_s")),
+            s=host_s),
+        staged_eval=dict(**pick(staged, ("corpus_examples", "table_gb",
+                                         "streaming_warm", "staged_best",
+                                         "staged_speedup", "metrics_match",
+                                         "results")), s=staged_s),
+        **train_rows, batch_size=TRAIN_BATCH, iters=PROBE_ITERS,
+        phase_s=time.perf_counter() - phase_t0, card=card(),
+        device=torch.cuda.get_device_name(0))
+
+
 def main() -> int:
     import torch
 
@@ -1588,17 +1825,15 @@ def main() -> int:
     ck_line = checkpoint_phase(dev)
     emit(ck_line)
     emit(ddp_phase(ck_line))
+    emit(bench_phase(main_line))
+    emit(probes_phase())
     # Each kernel's launches on its main path: the eval step's kernels in
     # the `main` run, `fused_fusion` (backward only) in the `train` run,
     # `pallas_block` in the `probe` run.
     launches["fused_fusion"] = train_launches["fused_fusion"]
     launches["pallas_block"] = probe_launches["pallas_block"]
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip()
-    print(smi, flush=True)
+    print(card(), flush=True)
 
     # Each kernel's entry source, the header its kernel is built on, and
     # the TPU kernel it replaces. The fusion kernels and the probe's block

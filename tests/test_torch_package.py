@@ -75,7 +75,11 @@ def test_port_imports_no_jax_and_nothing_of_drn_tpu():
             "drn_tpu_torch.data.datasets", "drn_tpu_torch.data.features",
             "drn_tpu_torch.data.vocab", "drn_tpu_torch.serve",
             "drn_tpu_torch.export", "drn_tpu_torch.probes.serve_load",
-            "drn_tpu_torch.probes.export_roundtrip"} <= set(PORT_MODULES)
+            "drn_tpu_torch.probes.export_roundtrip", "drn_tpu_torch.bench",
+            "drn_tpu_torch.probes.host_pipeline",
+            "drn_tpu_torch.probes.staged_eval",
+            "drn_tpu_torch.probes.train_probe",
+            "drn_tpu_torch.probes.train_mfu"} <= set(PORT_MODULES)
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
@@ -95,8 +99,10 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
-    from drn_tpu_torch import infer, train
+def test_entry_points_refuse_the_cpu_unless_asked(no_cuda, tmp_path):
+    from drn_tpu_torch import bench, infer, train
+    from drn_tpu_torch.probes import (host_pipeline, staged_eval, train_mfu,
+                                      train_probe)
 
     cfg = port_config.get_config("synthetic_tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -117,6 +123,17 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
     segs, keep, scores = port_eval.predict(cfg, model, batch, device="cpu")
     assert segs.shape == (2, cfg.eval.top_k, 2) and keep.dtype == bool
     assert np.isfinite(scores).all()
+    # The bench and the probes refuse before they write or time anything.
+    out = ["--out", str(tmp_path / "corpus")]
+    for main, argv in ((bench.main, ["--config", "synthetic_tiny"]),
+                       (bench.main, ["--all-configs"]),
+                       (host_pipeline.main, out),
+                       (staged_eval.main, out),
+                       (train_probe.main, ["--config", "synthetic_tiny"]),
+                       (train_mfu.main, ["--config", "synthetic_tiny"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    assert not (tmp_path / "corpus").exists()
 
 
 def test_evaluate_on_the_cpu_when_asked():
