@@ -138,9 +138,10 @@ non-zero exit code:
               PyTorch-CPU reference), then `--latency` (B=1) and
               `--all-configs --skip-train --skip-torch` (bench.py's five
               configs); every stdout line a contract line with bench.py's
-              keys, every number positive and finite, and each run's
-              launch counts (its stderr line) equal to the launches a step
-              of each path times the steps it reports. Its line puts the
+              keys, every number positive and finite, no per-step time
+              that `chained_time` clamped, and each run's launch counts
+              (its stderr line) equal to the launches a step of each path
+              times the steps it reports. Its line puts the
               contract numbers beside the `main` phase's step_qps and the
               card's name and power limit.
  12. probes   the probes of the host path and the train step, in this
@@ -150,9 +151,12 @@ non-zero exit code:
               and NumPy, 2 workers; the eval rate measured on the card) and
               `probes.staged_eval` (streamed and staged `evaluate()` on such
               a corpus: equal metrics, or it raises; the launches of every
-              step it ran), then `probes.train_probe` and
-              `probes.train_mfu` (every probe) at B=384 with short chains;
-              each probe's rows, the package kernels launched.
+              step it ran), then `probes.train_probe` (the train step's
+              rows with their FLOPs and mfu) and `probes.train_mfu` (its
+              own probes: adam, grad_remat, fp32; the others time
+              train_probe's rows again) at B=384 with 12-step chains;
+              each probe's rows, none clamped, the package kernels
+              launched.
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -247,15 +251,16 @@ SERVE_CONCURRENCY = (1, 16, 64)
 SERVE_LOAD_S = 3.0
 
 # The bench phase's chains: `--iters` of the throughput run (the train chain
-# takes half), of `--latency`, of `--all-configs`.
-BENCH_ITERS, LATENCY_ITERS, ALL_CONFIGS_ITERS = 24, 32, 4
+# takes half), of `--latency`, of `--all-configs`. At least 12 steps each:
+# the host clock moves by more than a step over shorter chains.
+BENCH_ITERS, LATENCY_ITERS, ALL_CONFIGS_ITERS = 24, 32, 12
 CONTRACT_KEYS = ["metric", "value", "unit", "vs_baseline", "mfu",
                  "train_examples_per_sec", "train_mfu", "iters"]
 # The probes phase: the host path's corpus (the dataset phase's size), the
 # chains of the train-step probes.
 PROBE_CORPUS = ["--videos", str(DS_VIDEOS), "--rows", "96,160",
                 "--queries-per-video", str(DS_QUERIES)]
-PROBE_ITERS = 2
+PROBE_ITERS = 12
 
 
 def emit(obj) -> None:
@@ -1620,13 +1625,23 @@ def _bench_child(*flags):
     recs = [json.loads(ln) for ln in proc.stderr.splitlines()
             if ln.startswith("{")]
     runs = [r for r in recs if "launches" in r]
+    meas = [r for r in recs if "measurement" in r]
+    _not_clamped(f"bench {' '.join(flags)}", meas)
     for r in runs:
         want = _expected_launches(get_config(r["config"]).model, r["steps"])
         if r["launches"] != want or not r["steps"].get("eval"):
             raise AssertionError(f"bench {r['config']}: launches "
                                  f"{r['launches']}, expected {want} for "
                                  f"{r['steps']} steps")
-    return out, runs, [r for r in recs if "measurement" in r], wall
+    return out, runs, meas, wall
+
+
+def _not_clamped(what, recs):
+    """`chained_time` clamps a per-step time that was not positive (the
+    host clock's noise over the chain); such a record is no measurement."""
+    bad = [r for r in recs if r["clamped"]]
+    if bad:
+        raise AssertionError(f"{what}: chained_time clamped {bad}")
 
 
 def _positive(line, keys):
@@ -1723,9 +1738,10 @@ def probes_phase():
     with tempfile.TemporaryDirectory(prefix="drn_probes_") as root:
         out, err, launches = _run_probe(host_pipeline, [
             "--out", os.path.join(root, "host"), *PROBE_CORPUS,
-            "--workers", "2", "--iters", "8"])
+            "--workers", "2", "--iters", str(PROBE_ITERS)])
         *host_rows, host = out
         qps_rec = next(r for r in err if r.get("measurement") == "eval")
+        _not_clamped("host_pipeline", [qps_rec])
         if len(host_rows) != 10 or host["device_qps_source"] != "measured" \
                 or any(r["examples"] != DS_VIDEOS * DS_QUERIES
                        for r in host_rows) or launches != \
@@ -1752,7 +1768,7 @@ def probes_phase():
     train_rows = {}
     for module, argv in (
             (train_probe, []),
-            (train_mfu, ["--probes", ",".join(train_mfu.PROBES)])):
+            (train_mfu, ["--probes", "adam,grad_remat,fp32"])):
         t0 = time.perf_counter()
         out, _, launches = _run_probe(module, [
             "--batch-size", str(TRAIN_BATCH), "--iters", str(PROBE_ITERS),
@@ -1761,6 +1777,7 @@ def probes_phase():
                 not all(r["ms"] > 0 for r in out):
             raise AssertionError(f"{module.__name__}: {out}, launches "
                                  f"{launches}")
+        _not_clamped(module.__name__, out)
         train_rows[module.__name__.rsplit(".", 1)[1]] = dict(
             rows=out, launches=launches, s=time.perf_counter() - t0)
     pick = lambda r, keys: {k: r[k] for k in keys}

@@ -13,7 +13,8 @@ names: {"metric", "value", "unit", "vs_baseline", "mfu",
 "train_examples_per_sec", "train_mfu", "iters"}. The line is printed right
 after the eval measurement and again, enriched, after the train step's.
 Everything else goes to stderr: one JSON line per measurement (batch, steps
-run, per-step ms, the k=1 chain's ms, FLOPs, mfu, the card's name) and one
+run, per-step ms, the k=1 chain's ms, whether `chained_time` clamped the
+per-step time, FLOPs, mfu, the card's name) and one
 with the package kernels' launch counts of the run and the steps it ran
 (`ops.cuda.launch_counts()`), so a caller can see the kernels ran.
 
@@ -179,9 +180,12 @@ def train_model_flops(cfg: ExperimentConfig, batch, device=None) -> float:
 
 def chained_time(run_k: Callable[[int], float], iters: int, warmup: int = 2,
                  reps: int = 5):
-    """(per-step s, the k=1 run's s): the median of `reps` host-clock
-    samples of `run_k(1)` and of `run_k(1 + iters)` (each after `warmup`
-    runs), their difference over `iters`."""
+    """(per-step s, the k=1 run's s, clamped): the median of `reps`
+    host-clock samples of `run_k(1)` and of `run_k(1 + iters)` (each after
+    `warmup` runs), their difference over `iters`. A difference that is
+    not positive (host-clock noise over too short a chain) is clamped to
+    1 ns, as bench.py does, and `clamped` says so: such a time is no
+    measurement."""
 
     def timed(k):
         for _ in range(warmup):
@@ -195,7 +199,7 @@ def chained_time(run_k: Callable[[int], float], iters: int, warmup: int = 2,
 
     t1 = timed(1)
     t2 = timed(1 + iters)
-    return max((t2 - t1) / iters, 1e-9), t1
+    return max((t2 - t1) / iters, 1e-9), t1, t2 <= t1
 
 
 def mfu_of(flops: float, per_step_s: float, dev: torch.device):
@@ -209,12 +213,13 @@ def _measure(kind: str, cfg: ExperimentConfig, chain: Chain, iters: int,
              dev: torch.device, b: int, stats: Optional[dict],
              flops: Callable[[], float]):
     phase(f"timing the {kind} chain k=1, {1 + iters} at B={b}")
-    per_step, t1 = chained_time(chain, iters)
+    per_step, t1, clamped = chained_time(chain, iters)
     flops = flops()
     mfu = mfu_of(flops, per_step, dev)
     rec = dict(measurement=kind, config=cfg.name, batch_size=b, iters=iters,
                steps=chain.steps, step_ms=per_step * 1e3, k1_ms=t1 * 1e3,
-               flops_per_step=flops, mfu=mfu, device=device_name(dev))
+               clamped=clamped, flops_per_step=flops, mfu=mfu,
+               device=device_name(dev))
     log(json.dumps(rec))
     if stats is not None:
         stats.update(rec)

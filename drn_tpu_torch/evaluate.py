@@ -213,7 +213,8 @@ def eval_counts(cfg: ExperimentConfig, model: DRN, batches, device, *,
 def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
              split: str = "test", *, device=None, mesh: Optional[Mesh] = None,
              device_features: bool = False,
-             batches=None) -> Dict[str, float]:
+             batches=None,
+             table: Optional[torch.Tensor] = None) -> Dict[str, float]:
     """Full-split evaluation → {"R@n,IoU=m": percentage, "mIoU": ...}.
 
     `device_features` stages each unique video's resampled grid in one
@@ -221,7 +222,10 @@ def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
     row indices only. The metrics equal the streamed path's. `batches`
     (`eval_batches` of the split, in place of `dataset` and
     `device_features`) is the caller's and stays open, so a caller that
-    evaluates again reuses its worker processes. Under a `mesh` (by
+    evaluates again reuses its worker processes. `table`, with `batches`
+    of the view it was staged with (`stage_on_device`), is a staged table
+    of the caller's: the loop indexes it as `device_features`' own. Under
+    a `mesh` (by
     default the initialised process group's, parallel/mesh.py) each rank
     evaluates its row blocks and every rank returns the whole split's
     metrics."""
@@ -230,9 +234,11 @@ def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
     dev = resolve_device(device if device is not None
                          else getattr(mesh, "device", None))
     model.to(dev).eval()
-    table = None
     own = batches is None
     if own:
+        if table is not None:
+            raise ValueError("a staged table needs the `batches` of its "
+                             "view")
         if dataset is None:
             dataset = make_dataset(cfg.data, cfg.model, split=split)
         if device_features:

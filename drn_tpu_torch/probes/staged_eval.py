@@ -13,12 +13,12 @@ what a user waits for, rows on stderr:
   - `streaming_epoch_cold` / `_warm`: `evaluate()` streaming every batch
     through the FeatureReader (one dataset, so its LRU does its job; the
     cold row reads a fresh dataset);
-  - `staging_pass`: `stage_video_features` (each unique video read once,
-    one table);
-  - `staged_epoch_<e>`, `--epochs` of them: `evaluate(device_features=
-    True)`, the table on the device, the host feeding ids and row indices
-    (each call stages its own table, so these rows include the pass above;
-    the JAX probe timed the loop over a table staged once).
+  - `staging_pass`: `evaluate.stage_on_device`, the staging
+    `evaluate(device_features=True)` does (each unique video read once,
+    one table, copied to the device);
+  - `staged_epoch_<e>`, `--epochs` of them: the rest of that call,
+    `evaluate` over that table (`table=`), the host feeding ids and row
+    indices, as the JAX probe timed the loop over a table staged once.
 
 The first step of each path runs before the rows on zeros (no file read),
 so no row pays for a first launch. The streamed and staged metrics must be
@@ -57,9 +57,9 @@ def main(argv=None) -> int:
     from drn_tpu_torch.bench import device_name
     from drn_tpu_torch.config import get_config
     from drn_tpu_torch.data.pipeline import make_dataset
-    from drn_tpu_torch.data.staging import stage_video_features
-    from drn_tpu_torch.evaluate import (build_model, evaluate,
-                                        make_eval_step, resolve_device)
+    from drn_tpu_torch.evaluate import (build_model, eval_batches, evaluate,
+                                        make_eval_step, resolve_device,
+                                        stage_on_device)
     from drn_tpu_torch.probes.host_pipeline import (build_corpus,
                                                     corpus_config)
 
@@ -114,12 +114,19 @@ def main(argv=None) -> int:
                    lambda: evaluate(cfg, model, ds, device=dev))
     if m_cold != m_warm:
         raise RuntimeError(f"streamed epochs differ: {m_cold} vs {m_warm}")
-    ds2 = make_dataset(cfg.data, cfg.model, split="train")
-    timed("staging_pass", lambda: stage_video_features(ds2))
-    m_staged = None
+    table, view = timed("staging_pass", lambda: stage_on_device(
+        make_dataset(cfg.data, cfg.model, split="train"), dev))
+
+    def staged_epoch():
+        batches = eval_batches(cfg, view, dev)
+        try:
+            return evaluate(cfg, model, device=dev, batches=batches,
+                            table=table)
+        finally:
+            batches.close()
+
     for e in range(args.epochs):
-        m_staged = timed(f"staged_epoch_{e}", lambda: evaluate(
-            cfg, model, ds2, device=dev, device_features=True))
+        m_staged = timed(f"staged_epoch_{e}", staged_epoch)
         if m_staged != m_warm:
             diffs = {k: (m_warm[k], m_staged.get(k)) for k in m_warm
                      if m_warm[k] != m_staged.get(k)}

@@ -27,12 +27,16 @@ random weights, bench.py's batch, each probe is a chain timed by
     the whole run to fp32 when `fp32` was among the probes.
 
 Each probe prints one line to stderr and one JSON line to stdout: ms a step,
-the k=1 chain's ms, its model's matmul + conv FLOPs (`utils.flops` on a
-twin of the model built from the plain versions, as
-`bench.train_model_flops` counts: the kernels' recompute and
-`grad_remat`'s are not the model's) and mfu, their share of the H100's
-bf16 peak (none off the card). Runs on `cuda` unless
-`--device cpu`; with no card it raises.
+the k=1 chain's ms, `clamped` (`chained_time` found no positive
+difference: no measurement), its model's matmul + conv FLOPs
+(`utils.flops` on `train_probe.plain_twin`, as `bench.train_model_flops`
+counts: the kernels' recompute and `grad_remat`'s are not the model's)
+and mfu, their share of the H100's bf16 peak (none off the card).
+`fwd`, `grad`, `full` and `grad_noenc` time the steps of train_probe's
+`loss_fwd`, `fwd_bwd`, `fwd_bwd_adam` and `fwd_bwd_without_query_encoder`
+rows, which carry the same columns: a run of both needs only `adam`,
+`grad_remat` and `fp32` here. Runs on `cuda` unless `--device cpu`; with
+no card it raises.
 """
 
 from __future__ import annotations
@@ -67,8 +71,8 @@ def main(argv=None) -> int:
     from drn_tpu_torch.bench import (Chain, chained_time, make_bench_batch,
                                      mfu_of, phase)
     from drn_tpu_torch.evaluate import build_model, resolve_device
-    from drn_tpu_torch.models.layers import PLAIN_OPS
-    from drn_tpu_torch.probes.train_probe import config_at, frozen, loss_of
+    from drn_tpu_torch.probes.train_probe import (config_at, frozen, loss_of,
+                                                  plain_twin)
     from drn_tpu_torch.train import (loss_and_grads, make_optimizer,
                                      make_train_step)
     from drn_tpu_torch.utils.flops import estimate_flops
@@ -79,22 +83,19 @@ def main(argv=None) -> int:
     batch = make_bench_batch(cfg, batch_size=b, device=dev)
     model = build_model(cfg, device=dev, seed=0).train()
     opt = make_optimizer(cfg, 1, model)
-    # Model FLOPs (bench.train_model_flops'): each probe's work counted on a
-    # twin built from the kernels' plain versions, differentiated by
-    # autograd, so no recompute is counted.
-    plain = build_model(cfg, device=dev, seed=0, ops=PLAIN_OPS).train()
-    make_optimizer(cfg, 1, plain)
+    plain = plain_twin(cfg, dev)
     phase(f"B={b} probes={probes} dtype={cfg.model.dtype}")
 
     def timed(label, step, flops_step, dtype=cfg.model.dtype):
-        per_step, t1 = chained_time(Chain(step, batch, lambda s: s),
-                                    args.iters)
+        per_step, t1, clamped = chained_time(
+            Chain(step, batch, lambda s: s), args.iters)
         flops = estimate_flops(flops_step, batch) if flops_step else 0.0
         mfu = mfu_of(flops, per_step, dev)
         phase(f"{label}: {per_step * 1e3:.3f} ms/step (k1 {t1 * 1e3:.1f} ms)"
               + (f", MFU {mfu * 100:.2f}%" if mfu else ""))
         print(json.dumps({"probe": label, "ms": per_step * 1e3,
-                          "k1_ms": t1 * 1e3, "flops_per_step": flops,
+                          "k1_ms": t1 * 1e3, "clamped": clamped,
+                          "flops_per_step": flops,
                           "mfu": mfu, "batch_size": b, "dtype": dtype}),
               flush=True)
 
@@ -141,9 +142,7 @@ def main(argv=None) -> int:
         elif probe == "fp32":
             cfg32 = cfg.replace(model=dataclasses.replace(cfg.model,
                                                           dtype="float32"))
-            model32 = build_model(cfg32, device=dev, seed=0,
-                                  ops=PLAIN_OPS).train()
-            make_optimizer(cfg32, 1, model32)  # the trained parameters
+            model32 = plain_twin(cfg32, dev)
             timed("fp32 grad", grad(cfg32, model32), grad(cfg32, model32),
                   "float32")
             del model32

@@ -19,9 +19,14 @@ by `bench.chained_time` (each run's loss feeds the next run's features):
     backbone) their whole backward.
 
 In eager PyTorch nothing is dead, so the rows do not fold the gradients
-into the chain's scalar as the JAX probe does. One JSON line a row on
-stdout ({"row", "ms", "k1_ms", "batch_size"}), one line a row on stderr.
-Runs on `cuda` unless `--device cpu`; with no card it raises.
+into the chain's scalar as the JAX probe does. Each row also carries its
+model FLOPs (`utils.flops` on `plain_twin`, as `bench.train_model_flops`
+counts: the kernels' recompute is not the model's; the optimizer adds
+none) and mfu, their share of the H100's bf16 peak (none off the card).
+One JSON line a row on stdout ({"row", "ms", "k1_ms", "clamped",
+"flops_per_step", "mfu", "batch_size"}; `clamped`: `chained_time` found no
+positive difference, so `ms` is no measurement), one line a row on
+stderr. Runs on `cuda` unless `--device cpu`; with no card it raises.
 """
 
 from __future__ import annotations
@@ -73,6 +78,20 @@ def frozen(model, owners: Iterable[str]):
             p.requires_grad_(w)
 
 
+def plain_twin(cfg, dev):
+    """The model `evaluate.build_model` makes from seed 0, built from the
+    kernels' plain versions, its optimizer's trainable set applied: what
+    its steps count with `utils.flops` are the model's FLOPs, no
+    recompute."""
+    from drn_tpu_torch.evaluate import build_model
+    from drn_tpu_torch.models.layers import PLAIN_OPS
+    from drn_tpu_torch.train import make_optimizer
+
+    plain = build_model(cfg, device=dev, seed=0, ops=PLAIN_OPS).train()
+    make_optimizer(cfg, 1, plain)
+    return plain
+
+
 def config_at(name: str, batch_size=None):
     from drn_tpu_torch.config import get_config
 
@@ -93,10 +112,12 @@ def main(argv=None) -> int:
                    help="torch device; cuda when omitted")
     args = p.parse_args(argv)
 
-    from drn_tpu_torch.bench import Chain, chained_time, make_bench_batch
+    from drn_tpu_torch.bench import (Chain, chained_time, make_bench_batch,
+                                     mfu_of)
     from drn_tpu_torch.evaluate import build_model, resolve_device
     from drn_tpu_torch.train import (loss_and_grads, make_optimizer,
                                      make_train_step)
+    from drn_tpu_torch.utils.flops import estimate_flops
 
     dev = resolve_device(args.device)
     cfg = config_at(args.config, args.batch_size)
@@ -104,30 +125,37 @@ def main(argv=None) -> int:
     batch = make_bench_batch(cfg, batch_size=b, device=dev)
     model = build_model(cfg, device=dev, seed=0).train()
     opt = make_optimizer(cfg, 1, model)
+    plain = plain_twin(cfg, dev)
 
-    def fwd(bt):
-        with torch.no_grad():
-            return loss_of(cfg, model, bt)
+    def fwd(m):
+        def run(bt):
+            with torch.no_grad():
+                return loss_of(cfg, m, bt)
+        return run
 
-    def fwd_bwd(bt):
-        return loss_and_grads(cfg, model, bt)["loss"]
+    def fwd_bwd(m):
+        return lambda bt: loss_and_grads(cfg, m, bt)["loss"]
 
-    def row(name, step):
-        per_step, t1 = chained_time(Chain(step, batch, lambda s: s),
-                                    args.iters)
+    def row(name, step, flops_step):
+        per_step, t1, clamped = chained_time(
+            Chain(step, batch, lambda s: s), args.iters)
+        flops = estimate_flops(flops_step, batch)
+        mfu = mfu_of(flops, per_step, dev)
         rec = {"row": name, "ms": per_step * 1e3, "k1_ms": t1 * 1e3,
+               "clamped": clamped, "flops_per_step": flops, "mfu": mfu,
                "batch_size": b}
-        print(f"{name:32s}: {per_step * 1e3:8.3f} ms", file=sys.stderr,
+        print(f"{name:32s}: {per_step * 1e3:8.3f} ms"
+              + (f", MFU {mfu * 100:.2f}%" if mfu else ""), file=sys.stderr,
               flush=True)
         print(json.dumps(rec), flush=True)
 
-    row("loss_fwd", fwd)
-    row("fwd_bwd", fwd_bwd)
+    row("loss_fwd", fwd(model), fwd(plain))
+    row("fwd_bwd", fwd_bwd(model), fwd_bwd(plain))
     train_step = make_train_step(cfg, model, opt)
-    row("fwd_bwd_adam", lambda bt: train_step(bt)["loss"])
+    row("fwd_bwd_adam", lambda bt: train_step(bt)["loss"], fwd_bwd(plain))
     for name, owners in GROUPS.items():
-        with frozen(model, owners):
-            row(f"fwd_bwd_without_{name}", fwd_bwd)
+        with frozen(model, owners), frozen(plain, owners):
+            row(f"fwd_bwd_without_{name}", fwd_bwd(model), fwd_bwd(plain))
     return 0
 
 

@@ -5,9 +5,13 @@ train chain's loss against the JAX package's steps on the same weights
 (carried by convert.py) at fp32 (and D=256); the FLOP counts against
 bench.py's; the command's output.
 
-Tolerances: the eval fold and the train loss after two steps 1e-4 (fp32,
+Tolerances: the eval step's recall counts, n_valid and keep mask exactly,
+its scores and segments and the train loss after two steps 1e-4 (fp32,
 summation order only; the bar of tests/test_torch_train.py's
-`test_train_steps_match_jax`); FLOPs 10% (bench.py's count is XLA's cost
+`test_train_steps_match_jax`); the eval fold 1e-6 against bench.py's fold
+of the JAX step's outputs, and each of its five terms alone against
+bench.py's weight 1e-6 (a fold that dropped one would read 0); FLOPs 10%
+(bench.py's count is XLA's cost
 analysis, which also counts element-wise work the port's matmul + conv
 count leaves out).
 """
@@ -156,12 +160,59 @@ def _jax_fold(outputs):
 
 
 def test_eval_chain_folds_what_the_jax_step_returns(pair):
-    want = _jax_fold(pair.eval_step(pair.jax_params(), pair.jbatch))
+    """Output by output, the chain's step against the JAX step (the counts,
+    n_valid and the keep mask exactly, the scores and the segments at
+    1e-4), then the chain's scalar: `fold_eval` of those outputs, equal to
+    bench.py's fold of the JAX step's. That each output counts in the fold
+    is `test_fold_eval_keeps_every_output_live`'s: at this size the fold
+    is n_valid plus ~1e-4, so the last comparison alone would not see a
+    term go missing."""
+    jcounts, jn, jsegs, jkeep, jscores = jax.device_get(
+        pair.eval_step(pair.jax_params(), pair.jbatch))
     chain = bench.eval_chain(pair.cfg, pair.model().eval(), pair.batch())
+    out = chain.step(pair.batch())
+    counts, n_valid, segs, keep, scores = out
+    assert {k: float(v) for k, v in counts.items()} == \
+        {k: float(v) for k, v in jcounts.items()}
+    assert float(n_valid) == float(jn) == 8
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    assert 0 < keep.sum() < keep.numel()
+    np.testing.assert_allclose(scores.numpy(), jscores, rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(segs.numpy(), jsegs, rtol=1e-4, atol=1e-4)
     got = chain(1)
-    np.testing.assert_allclose(got, float(want), rtol=1e-4)
+    assert got == float(bench.fold_eval(out))
+    np.testing.assert_allclose(got, float(_jax_fold(
+        (jcounts, jn, jsegs, jkeep, jscores))), rtol=1e-6)
     # Each step adds 0.0 times the last scalar: the same step again.
     assert chain(2) == got and chain.steps == 3
+
+
+# bench.py:244-249's weights: n_valid, the scores, the segments, the keep
+# mask, each recall count.
+FOLD_WEIGHTS = {"n_valid": 1.0, "scores": 1e-6, "segs": 1e-9, "keep": 1e-9,
+                "counts": 1e-9}
+
+
+@pytest.mark.parametrize("term", list(FOLD_WEIGHTS))
+def test_fold_eval_keeps_every_output_live(term):
+    """Each output alone (every other one zero) reaches the fold with
+    bench.py's weight: a fold that dropped it would read 0."""
+    value = 1234.0
+    zeros = {"n_valid": torch.zeros(()), "scores": torch.zeros(2, 3),
+             "segs": torch.zeros(2, 3, 2), "keep": torch.zeros(2, 3),
+             "counts": {(1, 0.5): torch.zeros(()),
+                        (5, 0.7): torch.zeros(())}}
+    if term == "counts":
+        zeros["counts"] = {(1, 0.5): torch.tensor(value / 2),
+                           (5, 0.7): torch.tensor(value / 2)}
+    else:
+        t = zeros[term]
+        zeros[term] = torch.full_like(t, value / max(t.numel(), 1))
+    got = bench.fold_eval(tuple(zeros[k] for k in (
+        "counts", "n_valid", "segs", "keep", "scores")))
+    np.testing.assert_allclose(float(got), FOLD_WEIGHTS[term] * value,
+                               rtol=1e-6)
 
 
 def test_train_chain_matches_two_jax_steps(pair):
@@ -193,6 +244,28 @@ def test_flops_within_a_tenth_of_bench_py(pair):
     # than the model's.
     assert bench.train_chain(pair.cfg, pair.model().train(),
                              pair.batch()).flops() > 1.1 * got_train
+
+
+@pytest.mark.parametrize("per_k,want", [
+    # (host s of a run of k steps) → (per-step s, k=1 s, clamped)
+    (lambda k: 0.25 + 0.5 * k, (0.5, 0.75, False)),
+    (lambda k: 1.0 / k, (1e-9, 1.0, True))])
+def test_chained_time_and_its_clamp(monkeypatch, per_k, want):
+    """The medians' difference over iters on a clock that each run advances
+    by `per_k(k)`; a chain that reads no slower than one step is clamped,
+    and says so."""
+    clock, calls = [0.0], []
+    monkeypatch.setattr(bench.time, "perf_counter", lambda: clock[0])
+
+    def run_k(k):
+        calls.append(k)
+        clock[0] += per_k(k)
+        return 0.0
+
+    got = bench.chained_time(run_k, 4, warmup=1, reps=3)
+    assert calls == [1] * 4 + [5] * 4
+    np.testing.assert_allclose(got[:2], want[:2], rtol=1e-12)
+    assert got[2] is want[2]
 
 
 def _lines(text):

@@ -110,8 +110,18 @@ def test_staged_eval_main(tmp_path, capsys):
         "staged_epoch_0"]
     summary = _json_lines(out)[-1]
     assert summary["metrics_match"] and summary["corpus_examples"] == 12
-    assert summary["metrics"] == port_eval.evaluate(
-        *_staged_model_and_data(tmp_path), device="cpu")
+    cfg, model, ds = _staged_model_and_data(tmp_path)
+    assert summary["metrics"] == port_eval.evaluate(cfg, model, ds,
+                                                    device="cpu") \
+        == port_eval.evaluate(cfg, model, ds, device="cpu",
+                              device_features=True)
+
+
+def test_evaluate_refuses_a_table_without_its_batches(tmp_path):
+    cfg, model, ds = _staged_model_and_data(tmp_path)
+    table, _ = port_eval.stage_on_device(ds, "cpu")
+    with pytest.raises(ValueError, match="batches"):
+        port_eval.evaluate(cfg, model, ds, device="cpu", table=table)
 
 
 def _staged_model_and_data(root):
@@ -125,9 +135,9 @@ def _staged_model_and_data(root):
 def test_staged_eval_raises_when_the_metrics_differ(tmp_path, monkeypatch):
     real = port_eval.evaluate
 
-    def off_by_one(*a, device_features=False, **kw):
-        res = real(*a, device_features=device_features, **kw)
-        return {k: v + device_features for k, v in res.items()}
+    def off_by_one(*a, table=None, **kw):
+        res = real(*a, table=table, **kw)
+        return {k: v + (table is not None) for k, v in res.items()}
 
     monkeypatch.setattr(port_eval, "evaluate", off_by_one)
     with pytest.raises(RuntimeError, match="staged metrics differ"):
@@ -142,6 +152,13 @@ def test_train_probe_main(capsys, one_sample):
         "loss_fwd", "fwd_bwd", "fwd_bwd_adam"] + [
         f"fwd_bwd_without_{g}" for g in train_probe.GROUPS]
     assert all(r["batch_size"] == 2 and r["ms"] > 0 for r in rows)
+    # Model FLOPs, as train_mfu counts them: the optimizer adds none; a
+    # frozen group's weight gradients drop out; no mfu off the card.
+    flops = {r["row"]: r["flops_per_step"] for r in rows}
+    assert flops["fwd_bwd"] == flops["fwd_bwd_adam"] > flops[
+        "fwd_bwd_without_query_encoder"] > flops["loss_fwd"] > 0
+    assert all(r["mfu"] is None and isinstance(r["clamped"], bool)
+               for r in rows)
 
 
 def test_frozen_restores_each_flag():
