@@ -157,6 +157,28 @@ non-zero exit code:
               train_probe's rows again) at B=384 with 12-step chains;
               each probe's rows, none clamped, the package kernels
               launched.
+ 13. module_probes  the module probes, in this process, chains of
+              MODULE_ITERS: `probes.nms_probe` (the single-query sweep
+              vmapped and the package's batched sweep, B=48, K=48, random
+              and chain inputs: equal order, keep and segments),
+              `profile_components` (the eval step, forward, query encoder,
+              backbone; residual and postproc derived) at the flagship,
+              `profile_residual` (fusion, FPN, heads, IoU head, its
+              sampling) at the flagship and at tacos_c3d, `iou_mix_probe`
+              at tacos_c3d (A, the port's IoU head, against B, mix_0
+              folded through the sampling: relative difference within
+              IOU_MIX_REL_TOL), `sample_probe` flat (B=384, N=T=112,
+              D=512) and per level at tacos_c3d (each sampler against the
+              gather within the tolerance it states), `embed_probe`
+              (B=384, L=20, V=8000, D=300: the scatter and the one-hot
+              matmul gradients within its fp32 tolerance), `stem_probe`
+              (the kernel at split 1 and 2, B=48 and 384, against its
+              plain version within the `kernels` tolerance) and
+              `pallas_model_check` (the flagship eval step through seven
+              `Ops` variants, each forward against the plain versions'
+              within the `main` tolerance, each variant's launches a step
+              those of its `Ops`): every row with host ms (none clamped),
+              device ms from a profiler trace and kernels a call.
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -261,6 +283,10 @@ CONTRACT_KEYS = ["metric", "value", "unit", "vs_baseline", "mfu",
 PROBE_CORPUS = ["--videos", str(DS_VIDEOS), "--rows", "96,160",
                 "--queries-per-video", str(DS_QUERIES)]
 PROBE_ITERS = 12
+# The module_probes phase: the chains, and the IoU mix probe's bound on A
+# against B (the JAX script's bf16 order tolerance, ~1e-2, doubled).
+MODULE_ITERS = 12
+IOU_MIX_REL_TOL = 2e-2
 
 
 def emit(obj) -> None:
@@ -1800,6 +1826,75 @@ def probes_phase():
         device=torch.cuda.get_device_name(0))
 
 
+def module_probes_phase():
+    """The module probes; see the module's docstring."""
+    import torch
+
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.probes import (embed_probe, iou_mix_probe, nms_probe,
+                                      pallas_model_check, profile_components,
+                                      profile_residual, sample_probe,
+                                      stem_probe)
+
+    phase_t0 = time.perf_counter()
+    runs = {}
+
+    def run(key, module, *argv):
+        t0 = time.perf_counter()
+        out, _, launches = _run_probe(module, [
+            *argv, "--iters", str(MODULE_ITERS)])
+        if not out:
+            raise AssertionError(f"{key}: no row")
+        _not_clamped(key, out)
+        runs[key] = dict(rows=out, launches=launches,
+                         s=time.perf_counter() - t0)
+        return out
+
+    def fail_on(key, bad):
+        if bad:
+            raise AssertionError(f"{key}: {bad}")
+
+    nms = run("nms_probe", nms_probe)
+    fail_on("nms_probe: keep masks differ", [
+        r for r in nms if r["row"] != "package" and not r["same_as_package"]])
+    run("profile_components", profile_components)
+    run("profile_residual", profile_residual)
+    run("profile_residual_tacos", profile_residual, "--config", "tacos_c3d")
+    iou = run("iou_mix_probe", iou_mix_probe, "--config", "tacos_c3d")
+    fail_on("iou_mix_probe: A against B", [
+        r for r in iou if r["row"] == "B"
+        and not r["rel_diff"] <= IOU_MIX_REL_TOL])
+    for key, argv in (("sample_probe", ()),
+                      ("sample_probe_tacos", ("--config", "tacos_c3d"))):
+        fail_on(f"{key}: a sampler off the gather", [
+            r for r in run(key, sample_probe, *argv)
+            if not r["max_err"] <= r["tol"]])
+    fail_on("embed_probe: the gradients differ", [
+        r for r in run("embed_probe", embed_probe)
+        if "max_grad_diff" in r and not r["max_grad_diff"] <= r["grad_tol"]])
+    if (stem_probe.ATOL, stem_probe.RTOL) != (KERNEL_ATOL, KERNEL_RTOL) or \
+            pallas_model_check.TOL != MAIN_TOL:
+        raise AssertionError("a module probe's tolerance is not this "
+                             "script's")
+    stem = run("stem_probe", stem_probe)
+    fail_on("stem_probe: a split off the plain version", [
+        r for r in stem if r["row"].startswith("kernel")
+        and not r["tol_ratio"] <= 1])
+    fail_on("stem_probe: rows", [] if sorted(
+        (r["B"], r.get("split")) for r in stem if "split" in r) == [
+        (48, 1), (48, 2), (384, 1), (384, 2)] else stem)
+    checks = run("pallas_model_check", pallas_model_check)
+    want = eval_launches_per_step(get_config(CONFIG).model)
+    fail_on("pallas_model_check", [
+        r for r in checks if not all(v <= 1 for v in r["tol_ratio"].values())
+        or r["launches"] != r["expected_launches"]
+        or (r["row"] == "all" and r["launches"] != want)])
+    return dict(
+        phase="module_probes", iters=MODULE_ITERS, **runs,
+        phase_s=time.perf_counter() - phase_t0, card=card(),
+        device=torch.cuda.get_device_name(0))
+
+
 def main() -> int:
     import torch
 
@@ -1844,6 +1939,7 @@ def main() -> int:
     emit(ddp_phase(ck_line))
     emit(bench_phase(main_line))
     emit(probes_phase())
+    emit(module_probes_phase())
     # Each kernel's launches on its main path: the eval step's kernels in
     # the `main` run, `fused_fusion` (backward only) in the `train` run,
     # `pallas_block` in the `probe` run.

@@ -75,7 +75,7 @@ from drn_tpu_torch.models.layers import PLAIN_OPS
 from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 from drn_tpu_torch.train import make_optimizer, make_train_step
 from drn_tpu_torch.utils.flops import estimate_flops
-from drn_tpu_torch.utils.profiling import trace
+from drn_tpu_torch.utils.profiling import device_time, trace
 
 # NVIDIA H100 SXM, dense bf16 (data sheet): the peak every mfu is against.
 PEAK_BF16_FLOPS = 989e12
@@ -126,32 +126,116 @@ def fold_eval(outputs) -> torch.Tensor:
             + 1e-9 * sum(v.float() for v in counts.values()))
 
 
-class Chain:
-    """`chain(k)`: k data-dependent runs of `step` on `batch`, each one's
-    features the batch's plus 0.0 times the previous run's consumed
-    scalar (`consume` of its outputs; 0 before the first), then one
-    `.item()` of the last scalar, the only host synchronisation.
+def perturb_floats(args, s: torch.Tensor):
+    """`args` with every floating tensor replaced by itself plus 0 times
+    `s` (cast to its dtype), inside lists, tuples and dicts too: the JAX
+    probes' `a + s.astype(a.dtype) * 0`."""
+    if isinstance(args, torch.Tensor):
+        return args + s.to(args.dtype) * 0 if args.is_floating_point() \
+            else args
+    if isinstance(args, (list, tuple)):
+        return type(args)(perturb_floats(a, s) for a in args)
+    if isinstance(args, dict):
+        return {k: perturb_floats(v, s) for k, v in args.items()}
+    return args
+
+
+def perturb_first(args, s: torch.Tensor):
+    """`args` with only the first taking `s`."""
+    return (args[0] + s.to(args[0].dtype) * 0, *args[1:])
+
+
+def perturb_features(args, s: torch.Tensor):
+    """(batch,) with only its features taking `s`: a step's chain."""
+    (batch,) = args
+    return ({**batch, "features": batch["features"] + s * 0.0},)
+
+
+def tensor_leaves(tree):
+    """Every tensor in a nest of lists, tuples and dicts, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in tensor_leaves(x)]
+    return []
+
+
+def fold_leaves(out) -> torch.Tensor:
+    """1e-6 times the sum of every tensor leaf of `out` (in fp32): the JAX
+    probes' `optimization_barrier(sum(leaves) * 1e-6)`, so no output of a
+    chained call is dead."""
+    return sum(t.float().sum() for t in tensor_leaves(out)) * 1e-6
+
+
+class CallChain:
+    """`chain(k)`: k data-dependent calls `fn(*perturb(args, s))`, `s` the
+    previous call's consumed scalar (`consume` of its outputs, by default
+    `fold_leaves`; 0 before the first), then one `.item()` of the last
+    scalar, the only host synchronisation. `steps` counts the calls."""
+
+    def __init__(self, fn: Callable, args: tuple,
+                 perturb: Callable = perturb_floats,
+                 consume: Callable[..., torch.Tensor] = fold_leaves):
+        self.fn, self.args = fn, args
+        self.perturb, self.consume = perturb, consume
+        self.device = tensor_leaves(args)[0].device
+        self.steps = 0
+
+    def __call__(self, k: int) -> float:
+        s = torch.zeros((), device=self.device)
+        for _ in range(k):
+            s = self.consume(self.fn(*self.perturb(self.args, s)))
+        self.steps += k
+        return s.item()
+
+
+class Chain(CallChain):
+    """A step's chain: k runs of `step` on `batch`, each one's features the
+    batch's plus 0.0 times the previous run's `consume` of its outputs.
     `steps` counts the runs of `step`, the FLOP estimate's included."""
 
     def __init__(self, step: Callable, batch: Dict[str, torch.Tensor],
                  consume: Callable[..., torch.Tensor]):
-        self.step, self.batch, self.consume = step, batch, consume
-        self.steps = 0
-
-    def __call__(self, k: int) -> float:
-        feats = self.batch["features"]
-        s = torch.zeros((), device=feats.device)
-        for _ in range(k):
-            s = self.consume(self.step({**self.batch,
-                                        "features": feats + s * 0.0}))
-        self.steps += k
-        return s.item()
+        super().__init__(step, (batch,), perturb_features, consume)
+        self.step, self.batch = step, batch
 
     def flops(self) -> float:
         """Matmul + conv FLOPs of one unchained run of the step (the
         kernels report theirs: `utils.flops.add_conv`)."""
         self.steps += 1
         return estimate_flops(self.step, self.batch)
+
+
+def call_row(fn: Callable, args: tuple, iters: int, dev: torch.device,
+             perturb: Callable = perturb_floats, unit: str = "ms") -> dict:
+    """A module probe's numbers for `fn(*args)`: the host clock's time a
+    call of a `CallChain` by `chained_time` (`host_<unit>`, the k=1
+    chain's `k1_<unit>`, `clamped`) and, on the card, `torch.profiler`
+    traces of single unchained calls (`utils.profiling.device_time`, 3
+    traces or more until two agree on the kernels): `device_<unit>`, the
+    call's kernel time summed, `device_busy_<unit>`, the union of its
+    kernels' intervals, `kernels_per_call`, and `traces`, each trace's
+    kernels. Off the card all four are None."""
+    scale = {"ms": 1e3, "us": 1e6}[unit]
+    per, t1, clamped = chained_time(CallChain(fn, args, perturb), iters)
+    dev_s = busy_s = kernels = traces = None
+    if dev.type == "cuda":
+        st = device_time(lambda: fn(*args), calls=1, sessions=3)
+        dev_s, busy_s = st["kernel_ms"] / 1e3, st["busy_ms"] / 1e3
+        kernels, traces = st["kernels"], st["traces"]
+    scaled = lambda v: None if v is None else v * scale
+    return {f"host_{unit}": per * scale, f"k1_{unit}": t1 * scale,
+            "clamped": clamped, f"device_{unit}": scaled(dev_s),
+            f"device_busy_{unit}": scaled(busy_s),
+            "kernels_per_call": kernels, "traces": traces}
+
+
+def print_row(rec: dict) -> None:
+    """A probe's row: one JSON line on stdout, the same on stderr."""
+    print(json.dumps(rec), flush=True)
+    log(json.dumps(rec))
 
 
 def eval_chain(cfg: ExperimentConfig, model, batch) -> Chain:

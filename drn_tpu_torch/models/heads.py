@@ -100,6 +100,46 @@ class GroundingHeads(nn.Module):
         return d[..., 0], d[..., 1], match_logits
 
 
+def segment_positions(sizes: Sequence[int], segments: torch.Tensor,
+                      level_ids: torch.Tensor, strides: torch.Tensor
+                      ) -> List[torch.Tensor]:
+    """The flat fractional indices (B, N) of each location's segment
+    start, mid and end (segments (B, N, 2) in base-grid units; level_ids,
+    strides (N,)), each clipped inside the location's own level."""
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    dev = segments.device
+    lo = torch.as_tensor(starts, dtype=torch.float32, device=dev)[level_ids]
+    hi = lo + torch.as_tensor(sizes, dtype=torch.float32,
+                              device=dev)[level_ids] - 1.0
+    start, end = segments[..., 0], segments[..., 1]
+    mid = 0.5 * (start + end)
+    return [torch.minimum(torch.maximum(p / strides - 0.5 + lo, lo), hi)
+            for p in (start, mid, end)]
+
+
+def level_positions(sizes: Sequence[int], pos: List[torch.Tensor]
+                    ) -> List[List[torch.Tensor]]:
+    """Per level, its (B, T_l) blocks of the flat positions `pos` (start,
+    mid, end) less the level's offset: positions inside the level. `- off`
+    is exact in fp32 (the JAX package's blocked sampling relies on the
+    same fact), so these pick what the flat positions pick."""
+    out, off = [], 0
+    for t_l in sizes:
+        out.append([q[:, off:off + t_l] - float(off) for q in pos])
+        off += t_l
+    return out
+
+
+def segment_samples(pyramid: List[torch.Tensor], pos: List[torch.Tensor]
+                    ) -> torch.Tensor:
+    """Each level's features gathered at its locations' start, mid and end
+    positions (`segment_positions`) → (B, N, 3D) fp32."""
+    per_level = level_positions([p.shape[1] for p in pyramid], pos)
+    return torch.cat([torch.cat([linear_time_sample(p_l, q) for q in qs],
+                                dim=-1)                      # (B, T_l, 3D)
+                      for p_l, qs in zip(pyramid, per_level)], dim=1)
+
+
 class IoUHead(nn.Module):
     """Segment-conditioned quality head over the flat location grid."""
 
@@ -116,26 +156,13 @@ class IoUHead(nn.Module):
     def forward(self, pyramid: List[torch.Tensor], segments: torch.Tensor,
                 level_ids: torch.Tensor, strides: torch.Tensor):
         """segments (B, N, 2) base-grid units; level_ids, strides (N,)."""
-        sizes = [p.shape[1] for p in pyramid]
-        starts = np.cumsum([0] + sizes[:-1])
-        dev = segments.device
-        lo = torch.as_tensor(starts, dtype=torch.float32, device=dev)[level_ids]
-        hi = lo + torch.as_tensor(sizes, dtype=torch.float32,
-                                  device=dev)[level_ids] - 1.0
-        start, end = segments[..., 0], segments[..., 1]
-        mid = 0.5 * (start + end)
-        # base-grid coords → flat fractional indices inside the own level
-        pos = [torch.minimum(torch.maximum(p / strides - 0.5 + lo, lo), hi)
-               for p in (start, mid, end)]
-        parts = []
-        for p_l, t_l, off in zip(pyramid, sizes, starts):
-            off = int(off)
-            # `- off` is exact in fp32 (the JAX package's blocked sampling
-            # relies on the same fact), so these are the flat positions.
-            parts.append(torch.cat(
-                [linear_time_sample(p_l, q[:, off:off + t_l] - float(off))
-                 for q in pos], dim=-1))                     # (B, T_l, 3D)
-        x = torch.cat(parts, dim=1).to(cdt(self.cfg))       # (B, N, 3D)
-        for blk in self.iou_mix:
+        pos = segment_positions([p.shape[1] for p in pyramid], segments,
+                                level_ids, strides)
+        x = segment_samples(pyramid, pos).to(cdt(self.cfg))  # (B, N, 3D)
+        return self.mix(x, 0)
+
+    def mix(self, x: torch.Tensor, first: int) -> torch.Tensor:
+        """The mixes from `first` on, then the output conv: (B, N) fp32."""
+        for blk in self.iou_mix[first:]:
             x = blk(x)
         return same_conv(x, self.iou_out, cdt(self.cfg)).float()[..., 0]

@@ -20,7 +20,7 @@ split its 512 Cout columns.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,21 +54,27 @@ class StemPlan(NamedTuple):
 
 
 def stem_plan(m: int, cin: int, cout: int, k: int = 3,
-              sms: int = H100_SMS) -> StemPlan:
+              sms: int = H100_SMS, split: Optional[int] = None) -> StemPlan:
     """Launch geometry of the stem kernel for M = B·T rows on a card with
     `sms` SMs. At Cout 512 the columns of a row tile are split over two
     blocks when twice the tiles still fit the SMs (on an H100 that was
     faster at the eval step's B=48, and slower at Cout 128). Each ring
     stage holds one A tile (rows × depth bf16) and one B tile (depth ×
     the block's columns, bf16); as many stages as fit, at most
-    MAX_STAGES."""
+    MAX_STAGES. `split` forces the split (a probe's choice; None takes
+    the rule above): 1, or 2 at Cout 512, the one width the source
+    builds split."""
     if cout not in STEM_COUTS:
         raise ValueError(f"fused_stem: Cout={cout} not in {STEM_COUTS}")
     if k % 2 == 0 or k > MAX_K:
         raise ValueError(f"fused_stem: K={k}; the kernel takes odd K up to "
                          f"{MAX_K}")
     tiles = -(-m // TILE_ROWS)
-    split = 2 if cout == 512 and 2 * tiles <= sms else 1
+    if split is None:
+        split = 2 if cout == 512 and 2 * tiles <= sms else 1
+    elif split not in (1, 2) or (split == 2 and cout != 512):
+        raise ValueError(f"fused_stem: split={split} at Cout={cout}; the "
+                         "kernel is built for split 1, and 2 at Cout 512")
     stage = 2 * TILE_DEPTH * (TILE_ROWS + cout // split)
     stages = min(MAX_STAGES, (SMEM_LIMIT - SMEM_FIXED) // stage)
     return StemPlan(TILE_ROWS, TILE_DEPTH, split, stages,
@@ -116,14 +122,24 @@ def fused_stem_op(x: torch.Tensor, in_scale: torch.Tensor,
                   in_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   out_scale: torch.Tensor, out_bias: torch.Tensor,
                   use_norm: bool, use_act: bool) -> torch.Tensor:
-    """The kernel's launch: checks, `stem_plan`, the statistics buffer, the
-    launch, its count and its FLOPs, all when the op runs."""
+    """The kernel's launch on `stem_plan`'s geometry, when the op runs."""
+    bsz, t, cin = x.shape
+    k, _, cout = w.shape
+    plan = stem_plan(bsz * t, cin, cout, k, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    return launch_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
+                       use_norm, use_act, plan)
+
+
+def launch_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
+                use_norm: bool, use_act: bool, plan: StemPlan):
+    """Checks, the statistics buffer, the launch on `plan`, its count and
+    its FLOPs. The custom op's body, on `stem_plan`'s own plan; a probe
+    passes a plan with a forced split (`probes/stem_probe.py`)."""
     bsz, t, cin = x.shape
     k, _, cout = w.shape
     if k % 2 == 0:
         raise ValueError(f"fused_stem: odd kernel width needed, got {k}")
-    plan = stem_plan(bsz * t, cin, cout, k, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
     check_cuda_inputs(
         "fused_stem",
         x=(x, torch.float32, (None, None, cin)),

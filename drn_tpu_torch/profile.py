@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from collections import defaultdict
 from pathlib import Path
 
 import torch
@@ -35,18 +34,9 @@ from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
 from drn_tpu_torch.evaluate import (build_model, make_eval_step,
                                     resolve_device, to_device)
 from drn_tpu_torch.train import make_optimizer, make_train_step
-from drn_tpu_torch.utils.profiling import host_ms
+from drn_tpu_torch.utils.profiling import device_time, host_ms
 
 OWN_KERNELS = ("conv_ln_relu_kernel", "stem_kernel", "row_stats_kernel")
-
-
-def _union_us(intervals) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
 
 
 def profile(config: str, steps: int, trace: str | None, top: int = 15,
@@ -72,40 +62,23 @@ def profile(config: str, steps: int, trace: str | None, top: int = 15,
         with torch.no_grad():
             forward_ms = host_ms(lambda: model(*args), 20)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            step(batch)
-        torch.cuda.synchronize()
     path = Path(trace or ("profiles/train_step_trace.json" if train
                           else "profiles/eval_step_trace.json"))
     path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no kernel on the card")
-    by_name = defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        by_name[e["name"]][0] += 1
-        by_name[e["name"]][1] += e["dur"]
-    busy_us = sum(v[1] for v in by_name.values())
-    union_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-    own_us = sum(v[1] for k, v in by_name.items()
-                 if any(o in k for o in OWN_KERNELS))
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    stats = device_time(lambda: step(batch), steps, warmup=0, path=str(path))
+    own_ms = sum(ms for name, _, ms in stats["by_name"]
+                 if any(o in name for o in OWN_KERNELS))
     return {
         "phase": "profile_train" if train else "profile", "config": cfg.name,
         "batch_size": bsz, "steps": steps,
         "step_ms": step_ms, "forward_ms": forward_ms,
-        "kernels_per_step": len(kernels) / steps,
-        "device_kernel_ms_per_step": busy_us / 1e3 / steps,
-        "device_busy_ms_per_step": union_us / 1e3 / steps,
-        "device_idle_share": max(0.0, 1.0 - union_us / 1e3 / steps / step_ms),
-        "own_kernel_share_of_device": own_us / busy_us,
-        "top": [{"name": k[:120], "launches_per_step": v[0] / steps,
-                 "ms_per_step": v[1] / 1e3 / steps} for k, v in ranked],
+        "kernels_per_step": stats["kernels"],
+        "device_kernel_ms_per_step": stats["kernel_ms"],
+        "device_busy_ms_per_step": stats["busy_ms"],
+        "device_idle_share": max(0.0, 1.0 - stats["busy_ms"] / step_ms),
+        "own_kernel_share_of_device": own_ms / stats["kernel_ms"],
+        "top": [{"name": name[:120], "launches_per_step": n,
+                 "ms_per_step": ms} for name, n, ms in stats["by_name"][:top]],
         "trace": str(path),
         "device": torch.cuda.get_device_name(dev),
     }

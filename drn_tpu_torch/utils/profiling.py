@@ -8,6 +8,12 @@
     synchronize at the end.
   * `cuda_time_ms`: the device time of one call, from CUDA events around a
     CUDA graph of back-to-back calls (no host overhead in the number).
+  * `kernel_events`, `kernel_stats`: the device kernels of a finished
+    `torch.profiler` session and their per-call sums (by name, summed, and
+    the union of their intervals); `device_time` traces a few calls of a
+    function with them. Unlike `cuda_time_ms` it takes any call, one that
+    copies from the host included (a CUDA graph cannot capture such a
+    copy), and it counts the call's kernels.
 
 PyTorch on the card returns before the device is done, as JAX's dispatch
 does: the host-clock timers here synchronise the card (when CUDA is in
@@ -17,10 +23,14 @@ use) where the JAX package calls `block_until_ready`.
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import statistics
+import tempfile
 import time
+from collections import defaultdict
 from pathlib import Path
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -113,3 +123,96 @@ def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
         times.append(start.elapsed_time(end) / iters)
     del graph
     return sorted(times)[len(times) // 2]
+
+
+def union_us(intervals: Iterable[Tuple[float, float]]) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def kernel_events(prof, path: Optional[str] = None) -> List[dict]:
+    """The device kernels (chrome-trace events of category `kernel`: name,
+    `ts` and `dur` in µs) of a finished `torch.profiler.profile` session.
+    Its chrome trace is written to `path`, or to a temporary file that is
+    removed again."""
+    if path is not None:
+        prof.export_chrome_trace(path)
+        return _kernels_of(path)
+    fd, tmp = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(tmp)
+        return _kernels_of(tmp)
+    finally:
+        os.unlink(tmp)
+
+
+def _kernels_of(path: str) -> List[dict]:
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def kernel_stats(kernels: List[dict], calls: int) -> Dict[str, Any]:
+    """Per call of `calls`: the kernels launched, their summed time
+    (`kernel_ms`), the time at least one ran (`busy_ms`, the union of
+    their intervals; the step's rest is the device's idle time), and
+    `by_name`: [name, launches, ms] per call, the longest first."""
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e["name"]][0] += 1
+        by_name[e["name"]][1] += e["dur"]
+    return {
+        "kernels": len(kernels) / calls,
+        "kernel_ms": sum(e["dur"] for e in kernels) / 1e3 / calls,
+        "busy_ms": union_us((e["ts"], e["ts"] + e["dur"])
+                            for e in kernels) / 1e3 / calls,
+        "by_name": [[k, n / calls, us / 1e3 / calls] for k, (n, us) in
+                    sorted(by_name.items(), key=lambda kv: -kv[1][1])],
+    }
+
+
+def device_time(fn: Callable[[], Any], calls: int = 3, warmup: int = 1,
+                path: Optional[str] = None,
+                sessions: int = 1) -> Dict[str, Any]:
+    """`kernel_stats` of `calls` back-to-back calls of `fn()` on the card,
+    from a `torch.profiler` trace taken after `warmup` calls (its chrome
+    trace kept at `path` when given). Raises when the traces hold no
+    kernel: the call ran nothing on the card.
+
+    With `sessions` > 1, that many traces are taken, and more, up to
+    twice as many, until two hold the most kernels any held: a trace can
+    come back short of kernels, or empty (on an H100, 5 of the 143 traces
+    of one run of chip_smoke's module probes, one of them empty), and a
+    short one would read as a faster call. The result is
+    the median by kernel time of the traces that hold the most, with
+    `traces`, the kernels a call of every trace taken."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    taken = []
+    while len(taken) < 2 * sessions:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        taken.append(kernel_stats(kernel_events(prof, path), calls))
+        most = max(t["kernels"] for t in taken)
+        full = [t for t in taken if t["kernels"] == most]
+        if len(taken) >= sessions and (len(full) >= 2 or sessions == 1):
+            break
+    counts = [t["kernels"] for t in taken]
+    if not most:
+        raise RuntimeError("the profiler recorded no kernel on the card")
+    if len(full) < 2 and sessions > 1:
+        raise RuntimeError(f"the profiler's traces disagree on the kernels "
+                           f"a call: {counts}")
+    full.sort(key=lambda t: t["kernel_ms"])
+    return {**full[len(full) // 2], "traces": counts}

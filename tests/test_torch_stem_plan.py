@@ -135,3 +135,44 @@ def test_stem_parts_switches_apply_to_the_kernel_source(tmp_path):
     for part, bit in (("kStageA", 1), ("kCopyB", 2), ("kMma", 4)):
         assert f"constexpr bool {part} = !(STEM_OFF & {bit});" in HEADER
         assert HEADER.count(part) >= 2  # defined and used
+
+
+def _rule(m, cout, sms=stem.H100_SMS):
+    """The split `stem_plan` takes by itself: 2 at Cout 512 where twice
+    the row tiles fit the SMs."""
+    return 2 if cout == 512 and 2 * -(-m // stem.TILE_ROWS) <= sms else 1
+
+
+@pytest.mark.parametrize("name,which", CASES)
+def test_no_forced_split_is_the_rule(name, which):
+    m, cin, cout, k = _shape(name, which)
+    plan = stem.stem_plan(m, cin, cout, k, split=None)
+    assert plan == stem.stem_plan(m, cin, cout, k)
+    assert plan.split == _rule(m, cout)
+    # Forcing the rule's own split gives the same plan.
+    assert stem.stem_plan(m, cin, cout, k, split=plan.split) == plan
+
+
+@pytest.mark.parametrize("cout,split", [(128, 2), (256, 2), (512, 3),
+                                        (512, 0)])
+def test_a_split_the_kernel_is_not_built_for_raises(cout, split):
+    with pytest.raises(ValueError, match="split"):
+        stem.stem_plan(48 * 64, 4096, cout, 3, split=split)
+
+
+def test_split_1_at_the_eval_batch_is_the_whole_width_geometry():
+    """B=48 at Cout 512 forced to split 1: the source's 8-column-group
+    instantiation (Geometry<8>, 512 columns a block), its stages and
+    shared memory, and a grid of the 48 row tiles alone."""
+    geometry = HEADER[HEADER.index("struct Geometry {"):]
+    geometry = geometry[:geometry.index("};")]
+    g = _c_constants(geometry, r"static constexpr int (kCout|kStageBytes"
+                     r"|kFit) = ([^;]+);", {**C, "NW": 8})
+    plan = stem.stem_plan(48 * 64, 4096, 512, 3, split=1)
+    assert g["kCout"] == 512 and plan.split == 1
+    assert plan.stages == min(g["kFit"], C["kMaxStages"])
+    assert plan.smem_bytes == plan.stages * g["kStageBytes"] \
+        + C["kFixedBytes"]
+    assert plan.grid == 48
+    # The rule itself splits there: 96 blocks in clusters of 2.
+    assert stem.stem_plan(48 * 64, 4096, 512, 3).grid == 96

@@ -11,6 +11,7 @@ package samples the IoU head's features with two matrix products (a TPU
 choice), the port with a gather, which does no multiply-add.
 """
 
+import contextlib
 import json
 import math
 
@@ -38,7 +39,8 @@ from drn_tpu_torch.utils import flops
 from drn_tpu_torch.utils.debug import (assert_finite_tree, check_metrics,
                                        nan_debug)
 from drn_tpu_torch.utils.flops import estimate_flops
-from drn_tpu_torch.utils.profiling import throughput, time_fn, trace
+from drn_tpu_torch.utils.profiling import (kernel_stats, throughput, time_fn,
+                                          trace, union_us)
 
 # --- FLOPs ---------------------------------------------------------------
 
@@ -218,3 +220,65 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.matmul(a, a)
     events = json.loads((tmp_path / "t" / "trace.json").read_text())
     assert any("mm" in e.get("name", "") for e in events["traceEvents"])
+
+
+def test_kernel_stats_sum_and_union_of_overlapping_kernels():
+    """Two calls' kernels (µs): a and b overlap by 2, c inside a, d alone
+    after a gap; summed 10 + 5 + 2 + 4 = 21 µs, busy 13 + 4 = 17 µs."""
+    kernels = [{"name": "a", "ts": 0.0, "dur": 10.0},
+               {"name": "b", "ts": 8.0, "dur": 5.0},
+               {"name": "c", "ts": 2.0, "dur": 2.0},
+               {"name": "d", "ts": 20.0, "dur": 4.0}]
+    st = kernel_stats(kernels, calls=2)
+    assert st["kernels"] == 2.0
+    assert st["kernel_ms"] == pytest.approx(21e-3 / 2)
+    assert st["busy_ms"] == pytest.approx(17e-3 / 2)
+    assert [n for n, _, _ in st["by_name"]] == ["a", "b", "d", "c"]
+    assert st["by_name"][0] == ["a", 0.5, pytest.approx(5e-3)]
+    assert union_us([]) == 0.0
+    assert union_us([(0, 5), (1, 2), (5, 7)]) == 7.0
+
+
+@pytest.mark.parametrize("counts,want,taken", [
+    ([3, 3, 3], 3, [3, 3, 3]),        # three full traces
+    ([3, 1, 2, 3], 3, [3, 1, 2, 3]),  # short traces: one more full one
+    ([1, 3, 3], 3, [1, 3, 3]),
+    ([3, 0, 3], 3, [3, 0, 3]),        # an empty trace is a short one
+])
+def test_device_time_keeps_the_traces_that_hold_every_kernel(
+        monkeypatch, counts, want, taken):
+    """The profiler's traces are faked (no card here): each holds `n`
+    kernels of 1 µs; `device_time` takes traces until two hold the most
+    and reports those."""
+    from drn_tpu_torch.utils import profiling
+
+    feed = iter(counts)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda **kw: contextlib.nullcontext())
+    monkeypatch.setattr(profiling, "kernel_events", lambda prof, path: [
+        {"name": "k", "ts": float(i), "dur": 1.0}
+        for i in range(next(feed))])
+    st = profiling.device_time(lambda: None, calls=1, warmup=0, sessions=3)
+    assert st["kernels"] == want and st["traces"] == taken
+    assert st["kernel_ms"] == pytest.approx(want * 1e-3)
+
+
+@pytest.mark.parametrize("counts,match,sessions", [
+    (range(1, 7), "disagree", 3),
+    ([0] * 6, "no kernel", 3),
+    ([0], "no kernel", 1),
+])
+def test_device_time_raises_without_two_full_traces(monkeypatch, counts,
+                                                    match, sessions):
+    from drn_tpu_torch.utils import profiling
+
+    feed = iter(counts)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda **kw: contextlib.nullcontext())
+    monkeypatch.setattr(profiling, "kernel_events", lambda prof, path: [
+        {"name": "k", "ts": 0.0, "dur": 1.0}] * next(feed))
+    with pytest.raises(RuntimeError, match=match):
+        profiling.device_time(lambda: None, calls=1, warmup=0,
+                              sessions=sessions)
