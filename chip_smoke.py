@@ -179,6 +179,29 @@ non-zero exit code:
               within the `main` tolerance, each variant's launches a step
               those of its `Ops`): every row with host ms (none clamped),
               device ms from a profiler trace and kernels a call.
+ 14. recipe   the two-stage recipe probes, in a child interpreter
+              (`RECIPE_CHILD`), in one temporary workdir so that one
+              stage 1 serves them all:
+              `probes.recipe_demo` at synthetic_recipe, 1 epoch a stage,
+              seed 0, with tests/test_recipe.py's gates (the trained
+              rescore above stage 1 and above the untrained rescore by
+              more than 1.0 R@1-mean, above stage 1 by more than 1.0 at
+              R@1,IoU=0.7; stage 2 without rescore equal to stage 1 within
+              1e-3 on every metric) and stage 2's non-IoU parameters
+              bit-identical to stage 1's best; then on its stage 1
+              `recipe_untrained_rescore_probe` (2 seeds),
+              `recipe_treatment_seeds` (2 seeds, 1 stage-2 epoch) and
+              `stage2_regime_ab` (1 seed, 1 stage-2 epoch), each to its
+              summary; `atscale_synthetic` at its defaults (charades_c3d's
+              width, 512 / 128 examples, B=64, 60 + 40 epochs), whose
+              freeze and lift checks raise; `int8_probe` at its shape
+              (3072, 12288) x (12288, 512): the int32 accumulators equal
+              to the same int8 operands multiplied in float64, every row
+              within its type's error bound. The four package kernels
+              launched over the runs, `fused_fusion` in stage 1's
+              backward, and no kernel's plain version called
+              (`plain_calls`). The line: each gate's numbers, seconds a
+              module and a stage, peak device memory.
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
@@ -287,6 +310,9 @@ PROBE_ITERS = 12
 # against B (the JAX script's bf16 order tolerance, ~1e-2, doubled).
 MODULE_ITERS = 12
 IOU_MIX_REL_TOL = 2e-2
+# The recipe phase's config (the demo's, and its stage 1 for the other
+# recipe probes).
+RECIPE_CONFIG = "synthetic_recipe"
 
 
 def emit(obj) -> None:
@@ -1895,6 +1921,147 @@ def module_probes_phase():
         device=torch.cuda.get_device_name(0))
 
 
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of every kernel's plain version while the block
+    runs: each `*_reference` function of the kernels' modules, wherever a
+    module of the package holds it (a wrapper's CPU branch, `PLAIN_OPS`),
+    is swapped for a counting twin; → the Counter, by name."""
+    import functools
+
+    from drn_tpu_torch.models.layers import Ops
+    from drn_tpu_torch.ops.cuda import block_probe, conv_block, fused_fusion
+    from drn_tpu_torch.ops.cuda import stem
+
+    counts = Counter()
+
+    def counting(name, fn):
+        @functools.wraps(fn)
+        def twin(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return twin
+
+    twins = {id(fn): counting(name, fn)  # by id: any value can be looked up
+             for mod in (conv_block, fused_fusion, stem, block_probe)
+             for name, fn in vars(mod).items() if name.endswith("_reference")}
+    swapped = []
+    for mod in [m for n, m in sys.modules.items()
+                if n.startswith("drn_tpu_torch")]:
+        for name, v in list(vars(mod).items()):
+            if isinstance(v, Ops) and any(id(f) in twins for f in v):
+                new = Ops(*(twins.get(id(f), f) for f in v))
+            elif id(v) in twins:
+                new = twins[id(v)]
+            else:
+                continue
+            swapped.append((mod, name, v))
+            setattr(mod, name, new)
+    try:
+        yield counts
+    finally:
+        for mod, name, v in swapped:
+            setattr(mod, name, v)
+
+
+def recipe_phase():
+    """The recipe probes; see the module's docstring."""
+    import torch
+
+    from drn_tpu_torch.probes import (atscale_synthetic, int8_probe,
+                                      recipe_demo, recipe_treatment_seeds,
+                                      recipe_untrained_rescore_probe,
+                                      stage2_regime_ab)
+
+    phase_t0 = time.perf_counter()
+    runs, total = {}, Counter()
+
+    def run(key, module, *argv):
+        t0 = time.perf_counter()
+        out, _, launches = _run_probe(module, list(argv))
+        runs[key] = dict(lines=out, launches=launches,
+                         s=time.perf_counter() - t0)
+        total.update(launches)
+        return out
+
+    def fail_on(key, bad):
+        if bad:
+            raise AssertionError(f"{key}: {bad}")
+
+    cfg = ["--config", RECIPE_CONFIG]
+    with tempfile.TemporaryDirectory(prefix="drn_recipe_") as work, \
+            plain_calls() as plain:
+        demo_run, demo = run("recipe_demo", recipe_demo, *cfg,
+                             "--stage1-epochs", "1", "--stage2-epochs", "1",
+                             "--seed", "0", "--workdir", work)
+        fail_on("recipe_demo", recipe_demo.gate_failures(
+            demo_run["results"], demo_run))
+        run("recipe_untrained_rescore_probe", recipe_untrained_rescore_probe,
+            *cfg, "--seeds", "2", "--workdir",
+            os.path.join(work, RECIPE_CONFIG, "stage1"))
+        run("recipe_treatment_seeds", recipe_treatment_seeds, *cfg,
+            "--seeds", "2", "--stage2-epochs", "1", "--workdir", work)
+        run("stage2_regime_ab", stage2_regime_ab, *cfg, "--seeds", "1",
+            "--stage2-epochs", "1", "--workdir", work)
+        (atscale,) = run("atscale_synthetic", atscale_synthetic)
+        int8_rows = run("int8_probe", int8_probe)
+    fail_on("int8_probe", int8_probe.gate_failures(int8_rows))
+    fail_on("launches", {k: total[k] for k in PACKAGE_KERNELS
+                         if not total[k] > 0})
+    fail_on("fused_fusion in stage 1's backward", [] if demo_run[
+        "launches"]["stage1_train"]["fused_fusion"] > 0 else demo_run)
+    fail_on("plain versions called", dict(plain))
+
+    results = demo_run["results"]
+    recipe = {k: v["lines"] for k, v in runs.items()
+              if k.startswith(("recipe_", "stage2_"))}
+    pick = lambda r, keys: {k: r[k] for k in keys if k in r}  # noqa: E731
+    return dict(
+        phase="recipe", config=RECIPE_CONFIG,
+        demo=dict(
+            r1_mean={k: recipe_demo.r1_mean(r) for k, r in results.items()},
+            r1_iou07={k: r["R@1,IoU=0.7"] for k, r in results.items()},
+            plain_minus_stage1=max(abs(results["stage2_plain"][k] - v)
+                                   for k, v in results["stage1"].items()),
+            moved_outside_iou_head=demo_run["moved_outside_iou_head"],
+            stage_s=demo_run["seconds"],
+            stage_launches=demo_run["launches"],
+            peak_mb=demo_run["peak_mb"]),
+        summaries={k: lines[-1] for k, lines in recipe.items()},
+        run_lines={k: lines[0] for k, lines in recipe.items()},
+        module_s={k: v["s"] for k, v in runs.items()},
+        module_launches={k: v["launches"] for k, v in runs.items()},
+        atscale=pick(atscale, ("stage1_match", "stage2_rescore", "lift",
+                               "moved_outside_iou_head", "seconds",
+                               "launches", "peak_mb")),
+        int8=[pick(r, ("row", "us", "tflops_equiv", "peak_share",
+                       "bound_us", "rel_err", "rel_tol", "speedup_vs_bf16",
+                       "acc_equal", "acc_mismatches")) for r in int8_rows],
+        launches=dict(total), plain_calls=dict(plain),
+        phase_s=time.perf_counter() - phase_t0, card=card(),
+        device=torch.cuda.get_device_name(0))
+
+
+# The recipe phase runs in a child interpreter: in this process, after the
+# earlier phases, its launch-bound train steps took 1.8x as long as in a
+# fresh one (synthetic_recipe's B=32 step 96 against 54 ms on an H100),
+# over ~2,500 steps.
+RECIPE_CHILD = ("import json, chip_smoke; "
+                "print(json.dumps(chip_smoke.recipe_phase()))")
+
+
+def recipe_phase_in_child():
+    """`recipe_phase` in a new interpreter (its stderr passed through) →
+    its line; a child that fails fails the run."""
+    proc = subprocess.run(
+        [sys.executable, "-c", RECIPE_CHILD], stdout=subprocess.PIPE,
+        text=True, timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"the recipe phase exited {proc.returncode} "
+                             "(its stderr is above)")
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
 def main() -> int:
     import torch
 
@@ -1940,6 +2107,7 @@ def main() -> int:
     emit(bench_phase(main_line))
     emit(probes_phase())
     emit(module_probes_phase())
+    emit(recipe_phase_in_child())
     # Each kernel's launches on its main path: the eval step's kernels in
     # the `main` run, `fused_fusion` (backward only) in the `train` run,
     # `pallas_block` in the `probe` run.

@@ -189,9 +189,12 @@ def device_time(fn: Callable[[], Any], calls: int = 3, warmup: int = 1,
     twice as many, until two hold the most kernels any held: a trace can
     come back short of kernels, or empty (on an H100, 5 of the 143 traces
     of one run of chip_smoke's module probes, one of them empty), and a
-    short one would read as a faster call. The result is
-    the median by kernel time of the traces that hold the most, with
-    `traces`, the kernels a call of every trace taken."""
+    short one would read as a faster call. A trace can also hold a
+    one-off kernel more than the others (on an H100, one of six traces of
+    the plain-version eval step held 1,202 kernels against 1,201): when
+    no two traces agree on the most, the most that two agree on is kept.
+    The result is the median by kernel time of the traces that hold the
+    count kept, with `traces`, the kernels a call of every trace taken."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -212,7 +215,10 @@ def device_time(fn: Callable[[], Any], calls: int = 3, warmup: int = 1,
     if not most:
         raise RuntimeError("the profiler recorded no kernel on the card")
     if len(full) < 2 and sessions > 1:
-        raise RuntimeError(f"the profiler's traces disagree on the kernels "
-                           f"a call: {counts}")
+        agreed = [n for n in counts if n and counts.count(n) >= 2]
+        if not agreed:
+            raise RuntimeError(f"the profiler's traces disagree on the "
+                               f"kernels a call: {counts}")
+        full = [t for t in taken if t["kernels"] == max(agreed)]
     full.sort(key=lambda t: t["kernel_ms"])
     return {**full[len(full) // 2], "traces": counts}

@@ -862,3 +862,44 @@ def test_worker_fed_train_step_equals_the_in_process_one(dev):
     for k, g in runs[0][1].items():
         torch.testing.assert_close(runs[1][1][k], g, rtol=1e-5, atol=1e-7,
                                    msg=k)
+
+
+# --- the recipe probes: chip_smoke's `recipe` gates ----------------------
+
+
+def test_recipe_demo_gates_on_the_card(dev, tmp_path):
+    """tests/test_recipe.py's gates through the kernels (synthetic_recipe,
+    1 epoch a stage, seed 0), the IoU-only stage 2 bit-identical outside
+    the IoU head, and `fused_fusion` in stage 1's backward."""
+    from drn_tpu_torch.probes import recipe_demo
+
+    info = {}
+    results = recipe_demo.run_demo("synthetic_recipe", 1, 1, str(tmp_path),
+                                   seed=0, device=dev, run=info)
+    assert recipe_demo.gate_failures(results, info) == []
+    assert info["launches"]["stage1_train"]["fused_fusion"] > 0
+    for k in ("fused_stem", "fused_fusion_block", "conv_ln_relu"):
+        assert info["launches"]["stage1_train"][k] > 0
+        assert info["launches"]["stage2_eval"][k] > 0
+
+
+def test_atscale_synthetic_checks_on_the_card(dev, capsys):
+    """charades_c3d's width at the script's defaults: the freeze and the
+    lift checks raise when they fail."""
+    from drn_tpu_torch.probes import atscale_synthetic
+
+    assert atscale_synthetic.main([]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == "ATSCALE OK"
+
+
+def test_int8_probe_gates_on_the_card(dev, capsys):
+    """The stem-shaped product: the int8 accumulators equal to float64's,
+    every row (FP8 included) within its type's error bound."""
+    import json
+
+    from drn_tpu_torch.probes import int8_probe
+
+    assert int8_probe.main(["--iters", "16"]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert len(rows) == 8 and int8_probe.gate_failures(rows) == []
+    assert rows[1]["row"] == "int8" and rows[1]["acc_equal"]

@@ -32,9 +32,13 @@ from drn_tpu_torch.config import get_config
 from drn_tpu_torch.models.heads import IoUHead
 from drn_tpu_torch.models.layers import linear_time_sample
 from drn_tpu_torch.ops.nms import batched_temporal_nms
-from drn_tpu_torch.probes import (embed_probe, iou_mix_probe, nms_probe,
+from drn_tpu_torch.probes import (atscale_synthetic, embed_probe, int8_probe,
+                                  iou_mix_probe, nms_probe,
                                   pallas_model_check, profile_components,
-                                  profile_residual, sample_probe, stem_probe)
+                                  profile_residual, recipe_demo,
+                                  recipe_treatment_seeds,
+                                  recipe_untrained_rescore_probe,
+                                  sample_probe, stage2_regime_ab, stem_probe)
 from scripts import embed_probe as jax_embed
 from scripts import nms_probe as jax_nms
 from scripts import sample_probe as jax_sample
@@ -373,9 +377,23 @@ def test_expected_launches_follow_the_ops():
         got["library"].values())
 
 
-@pytest.mark.parametrize("name", sorted({k.split()[0] for k in MAINS}))
+# Each probe's main with no --device, and the arguments it requires.
+REFUSERS = {
+    **{k.split()[0]: (v[0], []) for k, v in MAINS.items()},
+    "recipe_demo": (recipe_demo, []),
+    "recipe_untrained_rescore_probe": (recipe_untrained_rescore_probe,
+                                       ["--workdir", "unused"]),
+    "recipe_treatment_seeds": (recipe_treatment_seeds,
+                               ["--workdir", "unused"]),
+    "stage2_regime_ab": (stage2_regime_ab, ["--workdir", "unused"]),
+    "atscale_synthetic": (atscale_synthetic, []),
+    "int8_probe": (int8_probe, []),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSERS))
 def test_probes_refuse_the_cpu_unless_asked(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    module = MAINS[name][0]
+    module, argv = REFUSERS[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        module.main([])
+        module.main(argv)

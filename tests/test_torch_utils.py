@@ -244,6 +244,8 @@ def test_kernel_stats_sum_and_union_of_overlapping_kernels():
     ([3, 1, 2, 3], 3, [3, 1, 2, 3]),  # short traces: one more full one
     ([1, 3, 3], 3, [1, 3, 3]),
     ([3, 0, 3], 3, [3, 0, 3]),        # an empty trace is a short one
+    # One trace with a one-off kernel more: the count the others agree on.
+    ([4, 3, 3, 3, 3, 3], 3, [4, 3, 3, 3, 3, 3]),
 ])
 def test_device_time_keeps_the_traces_that_hold_every_kernel(
         monkeypatch, counts, want, taken):
@@ -266,6 +268,7 @@ def test_device_time_keeps_the_traces_that_hold_every_kernel(
 
 @pytest.mark.parametrize("counts,match,sessions", [
     (range(1, 7), "disagree", 3),
+    ([5, 0, 0, 1, 2, 3], "disagree", 3),  # only empty traces agree
     ([0] * 6, "no kernel", 3),
     ([0], "no kernel", 1),
 ])
