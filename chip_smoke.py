@@ -130,7 +130,37 @@ non-zero exit code:
               rank 1 is padding alone): equal metrics on both, within one
               query of one process evaluating the same checkpoint. Step
               times are records beside the card's name, not claims.
- 11. bench    the port's benchmark as users run it, `python -m
+ 11. mesh     tensor and sequence parallelism (the mesh's model and time
+              axes; parallel/, the layers' split forms) on the one card,
+              ranks spawned with torch.multiprocessing over gloo (NCCL
+              refuses two ranks on one device), one spawn for each world
+              size, each rank calling, run after run,
+              `train(mesh=make_mesh(model, time))` for MESH_STEPS stage-1
+              steps on the synthetic fixture, then `evaluate(mesh=...)` of
+              the model it returns and one forward of it split again.
+              Runs (data, model, time): on 2 ranks (1, 2, 1) at the
+              flagship (D=512, F=4096, T=64) at B=384, eval B=48, and (1,
+              1, 2) at tacos_c3d (T=512, 4 levels) at B=32, eval B=32; on
+              4 ranks (1, 2, 2) and (2, 1, 2) at the flagship as before,
+              the second batch of (2, 1, 2) ragged across its data ranks
+              (192 valid rows on data rank 0, 24 on 1). Against one
+              process's `train()` from the same seed: the losses within
+              MESH_LOSS_RTOL; the first step's gradient of every
+              parameter (rank 0's, split blocks gathered) and the split
+              forward's outputs each held to the plain versions in fp32
+              on the same weights and batch, no further from them than
+              MESH_FP32_RATIO times the whole path's own distance plus a
+              floor; one process's evaluate of the ranks' checkpoint
+              (whole tensors) within one query of the ranks'. Every rank
+              launches the kernels its layout runs (B4 `fused_fusion` in
+              place of B2 under the model axis) and calls no plain
+              version (`plain_calls`). A CUDA tensor whose shard the
+              kernels do not build raises: a conv_ln_relu of Cout 32, and
+              a flagship model split over 16 model ranks (at
+              `shard_model`, before any step). Step times beside one
+              process's: records with the card's name, not claims (gloo
+              through the host on one card says nothing of NVLink).
+ 12. bench    the port's benchmark as users run it, `python -m
               drn_tpu_torch.bench` in a child process (bench.py's method:
               chained data-dependent steps, one host sync a chain):
               `--iters BENCH_ITERS` (eval q/s at B=48, mfu, the train
@@ -144,7 +174,7 @@ non-zero exit code:
               times the steps it reports. Its line puts the
               contract numbers beside the `main` phase's step_qps and the
               card's name and power limit.
- 12. probes   the probes of the host path and the train step, in this
+ 13. probes   the probes of the host path and the train step, in this
               process: `probes.host_pipeline` (its own corpus, written by
               its `build_corpus` at the dataset phase's size: 128 videos,
               3 queries each, 96-160 rows at F=4096; BatchIterator native
@@ -157,7 +187,7 @@ non-zero exit code:
               train_probe's rows again) at B=384 with 12-step chains;
               each probe's rows, none clamped, the package kernels
               launched.
- 13. module_probes  the module probes, in this process, chains of
+ 14. module_probes  the module probes, in this process, chains of
               MODULE_ITERS: `probes.nms_probe` (the single-query sweep
               vmapped and the package's batched sweep, B=48, K=48, random
               and chain inputs: equal order, keep and segments),
@@ -179,7 +209,7 @@ non-zero exit code:
               within the `main` tolerance, each variant's launches a step
               those of its `Ops`): every row with host ms (none clamped),
               device ms from a profiler trace and kernels a call.
- 14. recipe   the two-stage recipe probes, in a child interpreter
+ 15. recipe   the two-stage recipe probes, in a child interpreter
               (`RECIPE_CHILD`), in one temporary workdir so that one
               stage 1 serves them all:
               `probes.recipe_demo` at synthetic_recipe, 1 epoch a stage,
@@ -270,6 +300,31 @@ CK_BATCH, CK_STEPS, CK_SIGTERM_AFTER = 48, 10, 3
 # size (two batches an epoch, the second of 216 rows: 192 on rank 0 and 24
 # on rank 1; its test split's last eval batch of 24 rows is all rank 0's).
 DDP_RANKS, DDP_BATCH, DDP_STEPS, DDP_EXAMPLES = 2, 384, 3, 600
+# The mesh phase: per job, its config, train batch and examples a split
+# (the flagship's second batch ragged, as ddp's); the (job, (data, model,
+# time)) runs, those of one world size in one spawn of ranks.
+MESH_STEPS = 3
+MESH_JOBS = {"flagship": ("charades_c3d_batched_eval", 384, 600),
+             "tacos": ("tacos_c3d", 32, 64)}
+MESH_RUNS = (("flagship", (1, 2, 1)), ("tacos", (1, 1, 2)),
+             ("flagship", (1, 2, 2)), ("flagship", (2, 1, 2)))
+# A split layout's losses against one process's, both through the kernels
+# in bf16 from the same weights and batches: on an H100 80GB HBM3 at 700 W
+# they differed by 1.0e-4 to 9.2e-4 relative over 3 steps (the split
+# LayerNorm's sums in another order); 5e-3 is five times the most.
+MESH_LOSS_RTOL = 5e-3
+# The split path's first-step gradients and forward outputs are held to
+# the plain versions in fp32 on the same weights and batch, no further
+# from them than MESH_FP32_RATIO times the whole path's own distance plus
+# a floor (MESH_GRAD_FLOOR relative L2 a parameter; MAIN_TOL's atol an
+# output). bf16 alone puts the whole path 13.7% from fp32 on the stem's
+# weight (cancelling sums over B·T rows of noise features), so the two
+# bf16 paths differ by as much between themselves; on an H100 80GB HBM3
+# at 700 W the split path's distances were at most 1.06x (gradients) and
+# 1.27x (outputs) the whole path's. A gradient summed over an axis too
+# many or too few is off by 50-100%.
+MESH_FP32_RATIO = 1.5
+MESH_GRAD_FLOOR = 0.01
 
 CONFIG = "charades_c3d_batched_eval"
 EXAMPLES = 120  # 48 + 48 + 24: three eval steps, the last one padded
@@ -1503,6 +1558,383 @@ def _ddp_rank(rank, world, port, root):
         dist.destroy_process_group()
 
 
+def _mesh_config(job, ckpt_dir):
+    """A mesh job's config: its model on the synthetic fixture at its
+    batch, logging every step, no periodic eval."""
+    from drn_tpu_torch.config import get_config
+
+    name, batch, examples = MESH_JOBS[job]
+    base = get_config(name)
+    return base.replace(
+        data=dataclasses.replace(base.data, dataset="synthetic",
+                                 batch_size=batch,
+                                 synthetic_examples=examples),
+        train=dataclasses.replace(base.train, checkpoint_dir=ckpt_dir,
+                                  log_every_steps=1, eval_every_epochs=0))
+
+
+@contextlib.contextmanager
+def _first_step():
+    """The trainer's first step: {"batch": its batch, on the card;
+    "params": the state dict it starts from (whole without a model axis);
+    "grads": the gradients its optimizer applies, whole (a split
+    parameter's blocks gathered over the model ranks), in fp32 on the
+    host}."""
+    from drn_tpu_torch import train as port_train
+    from drn_tpu_torch.parallel.sharding import gather_params
+
+    got = {}
+    grads_of, step = port_train.loss_and_grads, port_train.Optimizer.step
+
+    def recording_grads_of(cfg, model, batch, table=None):
+        if not got:
+            got["batch"] = batch
+            got["params"] = {k: v.detach().clone() for k, v in
+                             getattr(model, "module", model)
+                             .state_dict().items()}
+        return grads_of(cfg, model, batch, table)
+
+    def recording_step(self):
+        if "grads" not in got:
+            grads = {n: p.grad for n, p in self.params.items()
+                     if p.grad is not None}
+            specs = {n: 0 if n in self.split else None for n in grads}
+            got["grads"] = {n: g.float().cpu() for n, g in gather_params(
+                grads, specs, self.model_group).items()}
+        return step(self)
+
+    port_train.loss_and_grads = recording_grads_of
+    port_train.Optimizer.step = recording_step
+    try:
+        yield got
+    finally:
+        port_train.loss_and_grads = grads_of
+        port_train.Optimizer.step = step
+
+
+def _fp32(cfg):
+    """`cfg` with the model in fp32."""
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 dtype="float32"))
+
+
+def _fp32_grads(cfg, first):
+    """The gradients of the trainer's first step (`_first_step`'s batch
+    and weights) through the plain versions in fp32, TF32 off: the
+    yardstick both the split and the whole bf16 gradients are held to."""
+    from drn_tpu_torch.evaluate import build_model
+    from drn_tpu_torch.models.layers import PLAIN_OPS
+    from drn_tpu_torch.train import loss_and_grads
+
+    cfg32 = _fp32(cfg)
+    plain = build_model(cfg32, device="cuda", ops=PLAIN_OPS).train()
+    plain.load_state_dict(first["params"])
+    loss_and_grads(cfg32, plain, first["batch"])
+    return {k: v.grad.float().cpu() for k, v in
+            plain.state_dict(keep_vars=True).items() if v.grad is not None}
+
+
+def _rel_errors(got, want):
+    """{name: ‖got − want‖ / ‖want‖} (‖got‖ where want is 0)."""
+    out = {}
+    for k, w in want.items():
+        wn = w.norm().item()
+        out[k] = ((got[k] - w).norm().item() / wn if wn > 0
+                  else got[k].norm().item())
+    return out
+
+
+def _mesh_forward(cfg, model, mesh=None):
+    """`model`'s outputs on the first eval batch of the fixture's test
+    split, in fp32 on the host; under a split `mesh` on a copy split over
+    it, from this time rank's block of the features (every rank runs
+    it)."""
+    import copy
+
+    import torch
+
+    from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
+    from drn_tpu_torch.evaluate import to_device
+    from drn_tpu_torch.parallel import time_slice
+    from drn_tpu_torch.parallel.sharding import shard_model
+
+    batch = next(BatchIterator(make_dataset(cfg.data, cfg.model,
+                                            split="test"),
+                               cfg.eval.batch_size, shuffle=False).epoch(0))
+    if mesh is not None:
+        model = copy.deepcopy(model)
+        shard_model(model, mesh)
+    b = to_device(time_slice(batch, mesh), "cuda")
+    with torch.no_grad():
+        out = model.eval()(b["features"], b["word_ids"], b["query_mask"])
+    return {k: out[k].float().cpu() for k in MAIN_TOL}
+
+
+def _mesh_rank(rank, world, port, root, runs):
+    """One rank of the mesh phase, spawned: it joins the gloo group and,
+    for each (job, layout) of `runs` in turn, trains MESH_STEPS steps on
+    the card under `layout` (data, model, time), keeping the first step's
+    gradients, evaluates the model over the mesh and runs one forward of
+    it split, counting the kernels' launches (train and evaluate) and any
+    plain version's call; → `<root>/<job>_<tag>/rank<r>.json`, and rank
+    0's gradients and outputs beside it in `grads.pt`, `outputs.pt`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        from drn_tpu_torch import train as port_train
+        from drn_tpu_torch.evaluate import evaluate
+        from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+        from drn_tpu_torch.parallel import make_mesh
+
+        for job, layout in runs:
+            d = os.path.join(root, f"{job}_{_mesh_tag(layout)}")
+            mesh = make_mesh(*layout[1:])
+            assert mesh.data_world == layout[0], (mesh, layout)
+            cfg = _mesh_config(job, os.path.join(d, "ranks"))
+            with plain_calls() as plain, _recorded_steps() as rec, \
+                    _first_step() as first:
+                reset_launch_counts()
+                model = port_train.train(cfg, device="cuda", mesh=mesh,
+                                         max_steps=MESH_STEPS)
+                t0 = time.perf_counter()
+                results = evaluate(cfg, model, device="cuda", mesh=mesh)
+                eval_s = time.perf_counter() - t0
+                launches = launch_counts()
+                outputs = _mesh_forward(cfg, model, mesh)
+            if rank == 0:
+                torch.save(first["grads"], os.path.join(d, "grads.pt"))
+                torch.save(outputs, os.path.join(d, "outputs.pt"))
+            with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+                json.dump(dict(rank=rank, axes=[mesh.data_rank,
+                                                mesh.model_rank,
+                                                mesh.time_rank],
+                               launches=launches, plain=dict(plain),
+                               losses={k: v[0] for k, v in rec.items()},
+                               at={k: v[1] for k, v in rec.items()},
+                               results=results, eval_s=eval_s), f)
+            del model, first
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_tag(layout):
+    return "d{}m{}t{}".format(*layout)
+
+
+def _spawn_ranks(fn, nprocs, args, timeout_s=600):
+    """`fn(rank, nprocs, port, *args)` in `nprocs` spawned processes, on a
+    free port; each still alive after `timeout_s` is killed (and fails
+    the phase) → seconds."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(fn, args=(nprocs, port, *args), nprocs=nprocs,
+                             join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + timeout_s
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ranks still running after "
+                                     f"{timeout_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    return time.perf_counter() - t0
+
+
+def _coverage_refusals():
+    """A shard the kernels do not build raises on the card: the
+    conv_ln_relu kernel at Cout 32, and `shard_model` of the flagship
+    over 16 model ranks (blocks of 32) before any step → the messages."""
+    import torch
+
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.evaluate import build_model
+    from drn_tpu_torch.ops.cuda.conv_block import conv_ln_relu
+    from drn_tpu_torch.parallel.mesh import Mesh
+    from drn_tpu_torch.parallel.sharding import shard_model
+
+    said = []
+    x = torch.zeros((2, 64, 512), dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros((3, 512, 32), dtype=torch.bfloat16, device="cuda")
+    v = torch.zeros(32, device="cuda")
+    m16 = Mesh(rank=0, world=16, local_rank=0, device=None, group=None,
+               flags=None, model_axis=16)
+    for what in (lambda: conv_ln_relu(x, w, v, v, v),
+                 lambda: shard_model(build_model(get_config(CONFIG),
+                                                 device="cuda"), m16)):
+        try:
+            what()
+        except ValueError as e:
+            said.append(str(e))
+        else:
+            raise AssertionError("a shard outside the kernels' coverage "
+                                 "ran on the card")
+    return said
+
+
+def mesh_phase():
+    """Tensor and sequence parallelism on the one card; see the module's
+    docstring."""
+    import torch
+
+    from drn_tpu_torch import train as port_train
+    from drn_tpu_torch.evaluate import build_model, evaluate
+    from drn_tpu_torch.models.layers import PLAIN_OPS
+
+    phase_t0 = time.perf_counter()
+    refusals = _coverage_refusals()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="drn_mesh_") as root:
+        # One process per job, from the same seed: losses, step times,
+        # the first step's gradients, and those through the plain
+        # versions in fp32 from the same weights and batch.
+        one = {}
+        for job in MESH_JOBS:
+            cfg = _mesh_config(job, os.path.join(root, job, "one"))
+            torch.cuda.empty_cache()
+            with _recorded_steps() as rec, _first_step() as first:
+                port_train.train(cfg, device="cuda", max_steps=MESH_STEPS)
+            one[job] = dict(
+                losses={str(k): v[0] for k, v in rec.items()},
+                ms=_median_gap_ms({k: v[1] for k, v in rec.items()}),
+                grads=first["grads"], fp32=_fp32_grads(cfg, first))
+            del first
+        walls = {}
+        for world in sorted({math.prod(layout) for _, layout in MESH_RUNS}):
+            group = [(job, layout) for job, layout in MESH_RUNS
+                     if math.prod(layout) == world]
+            for job, layout in group:
+                os.makedirs(os.path.join(root, f"{job}_{_mesh_tag(layout)}"))
+            torch.cuda.empty_cache()  # the ranks' memory is their own
+            walls[world] = _spawn_ranks(_mesh_rank, world, (root, group))
+        for job, layout in MESH_RUNS:
+            tag, nprocs = _mesh_tag(layout), math.prod(layout)
+            name, batch, examples = MESH_JOBS[job]
+            ref = one[job]
+            d = os.path.join(root, f"{job}_{tag}")
+            cfg = _mesh_config(job, os.path.join(d, "ranks"))
+            ranks = []
+            for r in range(nprocs):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            runs_on = ("conv_ln_relu", "fused_stem", "fused_fusion") + (
+                ("fused_fusion_block",) if layout[1] == 1 else ())
+            for r in ranks:
+                if r["plain"] or not all(r["launches"].get(k)
+                                         for k in runs_on):
+                    raise AssertionError(
+                        f"{job} {tag} rank {r['rank']}: launches "
+                        f"{r['launches']}, plain calls {r['plain']}")
+            if any(r["losses"] != ranks[0]["losses"] or
+                   r["results"] != ranks[0]["results"] for r in ranks):
+                raise AssertionError(f"the ranks disagree: {ranks}")
+            got = ranks[0]["losses"]
+            if sorted(got) != sorted(ref["losses"]) or \
+                    len(got) != MESH_STEPS:
+                raise AssertionError(f"steps {sorted(got)} vs "
+                                     f"{sorted(ref['losses'])}")
+            rel = max(abs(v - ref["losses"][k]) / abs(ref["losses"][k])
+                      for k, v in got.items())
+            if rel > MESH_LOSS_RTOL:
+                raise AssertionError(
+                    f"{job} {tag}: losses {got} against one process's "
+                    f"{ref['losses']}")
+            # The first step's gradients, every parameter's, and the
+            # whole path's, each against the fp32 plain versions'.
+            grads = torch.load(os.path.join(d, "grads.pt"),
+                               weights_only=True)
+            if sorted(grads) != sorted(ref["grads"]):
+                raise AssertionError(f"{job} {tag}: gradients of "
+                                     f"{sorted(grads)} vs "
+                                     f"{sorted(ref['grads'])}")
+            split_err = _rel_errors(grads, ref["fp32"])
+            whole_err = _rel_errors(ref["grads"], ref["fp32"])
+            excess = {k: split_err[k] - MESH_FP32_RATIO * whole_err[k]
+                      for k in split_err}
+            worst = max(excess, key=excess.get)
+            if excess[worst] > MESH_GRAD_FLOOR:
+                raise AssertionError(
+                    f"{job} {tag}: gradient of {worst} {split_err[worst]:.4g}"
+                    f" from fp32, the whole path's {whole_err[worst]:.4g}")
+            far = max(split_err, key=split_err.get)
+            vs_one = _rel_errors(grads, ref["grads"])
+            # One forward, split on the ranks and whole here, from the
+            # ranks' last weights, each against the fp32 plain versions'
+            # (a wrong halo row shows at its row).
+            model = build_model(cfg, device="cuda")
+            model.load_state_dict(torch.load(
+                os.path.join(d, "ranks", cfg.name, "stage1",
+                             f"{MESH_STEPS}.pth"), weights_only=True)["model"])
+            outputs = torch.load(os.path.join(d, "outputs.pt"),
+                                 weights_only=True)
+            whole_out = _mesh_forward(cfg, model)
+            plain32 = build_model(_fp32(cfg), device="cuda", ops=PLAIN_OPS)
+            plain32.load_state_dict(model.state_dict())
+            fp32_out = _mesh_forward(_fp32(cfg), plain32)
+            del plain32
+            out_err = {}
+            for key, (atol, _) in MAIN_TOL.items():
+                out_err[key] = {
+                    "split": (outputs[key] - fp32_out[key]).abs().max().item(),
+                    "whole": (whole_out[key] - fp32_out[key]).abs().max()
+                    .item(),
+                    "split_vs_whole": (outputs[key] - whole_out[key]).abs()
+                    .max().item()}
+                e = out_err[key]
+                if outputs[key].shape != whole_out[key].shape or \
+                        e["split"] > MESH_FP32_RATIO * e["whole"] + atol:
+                    raise AssertionError(f"{job} {tag}: {key} from fp32 "
+                                         f"{out_err[key]}")
+            t0 = time.perf_counter()
+            single = evaluate(cfg, model, device="cuda")
+            single_s = time.perf_counter() - t0
+            slack = 100.0 / examples + 1e-6
+            diff = max(abs(ranks[0]["results"][k] - v)
+                       for k, v in single.items())
+            if set(single) != set(ranks[0]["results"]) or diff > slack:
+                raise AssertionError(
+                    f"{job} {tag} evaluate {ranks[0]['results']} against "
+                    f"one process's {single}")
+            runs[f"{job}_{tag}"] = dict(
+                config=name, layout=list(layout), ranks=nprocs,
+                batch_size=batch, eval_batch_size=cfg.eval.batch_size,
+                steps=MESH_STEPS, losses=got,
+                one_process_losses=ref["losses"],
+                loss_rel_vs_one_process=rel,
+                grad_rel_err_vs_fp32={
+                    "param": far, "split": split_err[far],
+                    "whole": whole_err[far],
+                    "max_excess": {"param": worst, "value": excess[worst]}},
+                max_grad_rel_err_vs_one_process=max(vs_one.values()),
+                median_grad_rel_err_vs_one_process=sorted(
+                    vs_one.values())[len(vs_one) // 2],
+                forward_max_abs_err=out_err,
+                step_ms=_median_gap_ms(ranks[0]["at"]),
+                one_process_step_ms=ref["ms"],
+                eval_s=ranks[0]["eval_s"], one_process_eval_s=single_s,
+                results=ranks[0]["results"], one_process_results=single,
+                eval_max_diff=diff, eval_slack=slack,
+                launches=[r["launches"] for r in ranks],
+                axes=[r["axes"] for r in ranks], spawn_wall_s=walls[nprocs])
+    return dict(phase="mesh", backend="gloo", runs=runs,
+                refusals=refusals, card=card(),
+                phase_s=time.perf_counter() - phase_t0)
+
+
 def _median_gap_ms(at):
     """The median ms between consecutive step records (the first step, a
     warm-up, left out)."""
@@ -2104,6 +2536,7 @@ def main() -> int:
     ck_line = checkpoint_phase(dev)
     emit(ck_line)
     emit(ddp_phase(ck_line))
+    emit(mesh_phase())
     emit(bench_phase(main_line))
     emit(probes_phase())
     emit(module_probes_phase())

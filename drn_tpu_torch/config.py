@@ -127,9 +127,9 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout. The port runs the data axis as a process group
-    (parallel/mesh.py); model_axis or time_axis > 1 raises (ROADMAP.md §A
-    item 5)."""
+    """Device-mesh layout: ranks of a process group as data × model × time
+    (parallel/mesh.py); the train CLI's --model-axis / --time-axis
+    override the two."""
 
     data_axis: int = -1              # -1 → all remaining devices
     model_axis: int = 1

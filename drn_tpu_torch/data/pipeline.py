@@ -171,14 +171,23 @@ class _Batches:
         return collate(self.dataset, indices, self.batch_size)
 
 
+# Seconds `WorkerBatchIterator.close` waits for a worker still alive after
+# the loader's shutdown before it kills it.
+WORKER_EXIT_S = 10.0
+
+
 def _ignore_sigterm(worker_id: int) -> None:
     """A worker's init: SIGTERM ignored. A scheduler that signals every
     process of the job (Slurm, systemd's control group, `kill -TERM
     -<pgid>`) must reach the trainer's preemption guard alone; a worker
     killed by it would make the loader raise in the training loop before
     the save. The parent stops the workers itself (`close()`), and a
-    worker whose parent died exits on its own."""
+    worker whose parent died exits on its own. The worker was born with
+    SIGTERM blocked (`WorkerBatchIterator.start`), so a signal sent while
+    its interpreter was still starting is pending here: SIG_IGN discards
+    it before the unblock."""
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.pthread_sigmask(signal.SIG_UNBLOCK, {signal.SIGTERM})
 
 
 class WorkerBatchIterator(BatchIterator):
@@ -234,7 +243,16 @@ class WorkerBatchIterator(BatchIterator):
             pin_memory=self.pin_memory, persistent_workers=True,
             multiprocessing_context="spawn", worker_init_fn=_ignore_sigterm)
         self._sampler.idle = True
-        iter(self._loader)  # spawns the pool; the idle sampler asks nothing
+        # The workers are born with SIGTERM blocked (the mask crosses fork
+        # and exec) and unblock it only once `_ignore_sigterm` has set
+        # SIG_IGN: a group SIGTERM while an interpreter is still starting
+        # would otherwise kill it. A SIGTERM to this process during the
+        # spawn stays pending and reaches the trainer's guard on restore.
+        old_mask = signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGTERM})
+        try:
+            iter(self._loader)  # spawns the pool; the idle sampler asks nothing
+        finally:
+            signal.pthread_sigmask(signal.SIG_SETMASK, old_mask)
         self._sampler.idle = False
 
     def epoch(self, epoch_idx: int = 0, skip_batches: int = 0
@@ -245,10 +263,19 @@ class WorkerBatchIterator(BatchIterator):
             yield {k: v.numpy() for k, v in batch.items()}
 
     def close(self) -> None:
-        """Stop the worker processes (a later epoch starts new ones)."""
+        """Stop the worker processes (a later epoch starts new ones), and
+        wait until each has exited. The loader's last resort for a worker
+        that outlives its shutdown, `terminate()`, sends SIGTERM, which
+        the workers ignore: such a worker gets WORKER_EXIT_S more, then
+        SIGKILL, so none outlives the iterator."""
         it = getattr(self._loader, "_iterator", None)
         if it is not None:
             it._shutdown_workers()
+            for w in it._workers:
+                w.join(timeout=WORKER_EXIT_S)
+                if w.is_alive():
+                    w.kill()
+                    w.join()
         self._loader = None
 
 

@@ -16,16 +16,20 @@ the same.
 `best/` first unless `--latest-checkpoint`); an Orbax directory is refused
 with the name of its converter, tools/orbax_to_pth.py.
 
-Data parallel (`evaluate(mesh=...)`, or any evaluation inside an
-initialised process group; parallel/mesh.py): each rank runs its row
-block of every batch, and one all-reduce of the counts after the loop
-gives every rank the same metrics, each example counted once. Staging
+Under a mesh (`evaluate(mesh=...)`, or any evaluation inside an
+initialised process group; parallel/mesh.py) each data rank runs its row
+block of every batch, and one all-reduce of the counts over the data
+ranks after the loop gives every rank the same metrics, each example
+counted once. With a model or time axis, `evaluate` splits a whole model
+itself (a copy, parallel/sharding.py::shard_model), and each time rank
+moves its block of the features to the device. Staging
 (`device_features`) in a group of more than one process is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -41,7 +45,9 @@ from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.layers import KERNEL_OPS, Ops
 from drn_tpu_torch.ops.metrics import metric_name, recall_at_n
 from drn_tpu_torch.ops.nms import batched_temporal_nms
-from drn_tpu_torch.parallel.mesh import Mesh, all_sum, current_mesh
+from drn_tpu_torch.parallel.mesh import (Mesh, all_sum, check_axes,
+                                         current_mesh, time_slice)
+from drn_tpu_torch.parallel.sharding import shard_model
 from drn_tpu_torch.utils.checkpoint import restore_params
 
 
@@ -176,12 +182,12 @@ def eval_batches(cfg: ExperimentConfig, dataset, device,
                  mesh: Optional[Mesh] = None):
     """The eval loop's batch iterator over `dataset`: in order, at
     eval.batch_size, in worker processes when data.num_workers > 0; with
-    a `mesh`, this rank's block of each batch."""
+    a `mesh`, this data rank's block of each batch."""
     return make_batch_iterator(dataset, cfg.data, shuffle=False, seed=0,
                                batch_size=cfg.eval.batch_size,
                                pin_memory=device.type == "cuda",
-                               rank=mesh.rank if mesh else 0,
-                               world=mesh.world if mesh else 1)
+                               rank=mesh.data_rank if mesh else 0,
+                               world=mesh.data_world if mesh else 1)
 
 
 def eval_counts(cfg: ExperimentConfig, model: DRN, batches, device, *,
@@ -189,13 +195,14 @@ def eval_counts(cfg: ExperimentConfig, model: DRN, batches, device, *,
                 mesh: Optional[Mesh] = None
                 ) -> Tuple[Dict[Tuple[int, float], float], float]:
     """The recall counts and the count of valid queries over an epoch of
-    `batches` (this rank's blocks under a `mesh`), summed over the mesh's
-    ranks: every rank returns the same numbers. The counts stay on the
-    device through the loop; one fetch at the end."""
+    `batches` (this data rank's blocks under a `mesh`), summed over the
+    data ranks: every rank returns the same numbers. The counts stay on
+    the device through the loop; one fetch at the end."""
     step = make_eval_step(cfg, model)
     totals = None
     for batch in batches.epoch(0):
-        counts, n_valid, *_ = step(to_device(batch, device), table)
+        counts, n_valid, *_ = step(to_device(time_slice(batch, mesh),
+                                             device), table)
         if totals is None:
             keys = sorted(counts, key=str)
             totals = torch.stack([n_valid] + [counts[k] for k in keys])
@@ -204,8 +211,8 @@ def eval_counts(cfg: ExperimentConfig, model: DRN, batches, device, *,
                                           + [counts[k] for k in keys])
     if totals is None:
         return {}, 0.0
-    if mesh is not None:
-        totals = all_sum(totals, mesh.group)
+    if mesh is not None and mesh.data_group is not None:
+        totals = all_sum(totals, mesh.data_group)
     n, *rest = totals.double().cpu().tolist()
     return dict(zip(keys, rest)), n
 
@@ -234,6 +241,10 @@ def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
     dev = resolve_device(device if device is not None
                          else getattr(mesh, "device", None))
     model.to(dev).eval()
+    if mesh is not None and mesh.sharded and model.mesh is not mesh:
+        check_axes(mesh.model_axis, mesh.time_axis, mesh.world, cfg)
+        model = copy.deepcopy(model)
+        shard_model(model, mesh)
     own = batches is None
     if own:
         if table is not None:

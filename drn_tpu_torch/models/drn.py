@@ -12,6 +12,14 @@
 (keys such as `stem.conv.weight`, `fusion_conv.0.bias`, `scales`), so a
 reference-schema `.pth` loads directly: each submodule's parameter names
 are unique across submodules, and the submodule prefix is dropped.
+
+Under a mesh with a model or time axis (`set_mesh`, called by
+parallel/sharding.py::shard_model) the backbone, the fusion and the FPN
+run on this rank's block of the clip axis, and each pyramid level is
+gathered whole before the heads; the heads, the IoU head's sampling
+(which reads any position of a level), decode and scoring then run the
+same on every time rank. The layers whose weights are split run on their
+output-channel block (models/layers.py).
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ from drn_tpu_torch.models.backbone import Backbone
 from drn_tpu_torch.models.fpn import TemporalFPN
 from drn_tpu_torch.models.fusion import CrossModalFusion
 from drn_tpu_torch.models.heads import GroundingHeads, IoUHead
-from drn_tpu_torch.models.layers import KERNEL_OPS, Ops
+from drn_tpu_torch.models.layers import KERNEL_OPS, WHOLE, Axes, ConvBlock, Ops
+from drn_tpu_torch.ops.cuda.conv_block import KERNEL_COUTS
+from drn_tpu_torch.parallel.collectives import gather_time
 from drn_tpu_torch.models.query_encoder import QueryEncoder
 from drn_tpu_torch.ops.temporal import decode_segments, pyramid_locations
 
@@ -92,6 +102,48 @@ class DRN(nn.Module):
         self.register_buffer("level_ids", level_ids, persistent=False)
         self._owner = {k.split(".")[0]: part for part in _PARTS
                        for k in getattr(self, part).state_dict()}
+        self.mesh, self.specs = None, None
+
+    def set_mesh(self, mesh, specs) -> None:
+        """Give every layer its `Axes` under `mesh` (None: whole again):
+        the model group where `specs` (parallel/sharding.py) splits its
+        weight, the time group for the backbone, fusion and FPN layers.
+        On a CUDA model a split conv kernel's block of output channels
+        must be one the kernels build (KERNEL_COUTS): another raises
+        here, naming the layer."""
+        self.mesh, self.specs = mesh, specs
+        on_card = next(self.parameters()).device.type == "cuda"
+
+        def axes(part: str, key: str, cout: int) -> Axes:
+            if mesh is None:
+                return WHOLE
+            split = specs[key] is not None
+            if split and on_card and cout // mesh.model_axis \
+                    not in KERNEL_COUTS:
+                raise ValueError(
+                    f"{key}: {cout} output channels over model_axis="
+                    f"{mesh.model_axis} leave blocks of "
+                    f"{cout // mesh.model_axis}; the kernels take "
+                    f"{KERNEL_COUTS}")
+            return Axes(mesh.model_group if split else None,
+                        mesh.time_group if part in ("backbone", "fusion",
+                                                    "fpn") else None)
+
+        for part in ("backbone", "fpn", "heads", "iou_head"):
+            for name, m in getattr(self, part).named_modules():
+                if isinstance(m, ConvBlock):
+                    m.axes = axes(part, f"{name}.conv.weight",
+                                  m.conv.out_channels)
+        fu = self.fusion
+        fu.axes = [axes("fusion", f"fusion_conv.{l}.weight",
+                        c.out_channels)
+                   for l, c in enumerate(fu.fusion_conv)]
+        qe = self.query_encoder
+        g = None if mesh is None else mesh.model_group
+        qe.lstm_group = g if mesh and specs["lstm_fwd.0.weight_hh_l0"] \
+            is not None else None
+        qe.proj_group = g if mesh and specs["query_proj.0.weight"] \
+            is not None else None
 
     def owner(self, key: str) -> str:
         """The submodule (one of query_encoder, backbone, fusion, fpn,
@@ -118,6 +170,8 @@ class DRN(nn.Module):
         v_levels = self.backbone(features)
         fused = self.fusion(v_levels, queries)
         pyramid = self.fpn(fused)
+        if self.mesh is not None and self.mesh.time_axis > 1:
+            pyramid = [gather_time(p, self.mesh.time_group) for p in pyramid]
         d_start, d_end, match_logits = self.heads(pyramid)
         # No gradient through the IoU head's sampling positions (the
         # two-stage recipe), as the JAX package's stop_gradient.

@@ -8,44 +8,125 @@ dtype; without gradients `packed()` builds that form once and reuses it
 until the parameters change, so nothing is transposed per call; when a
 gradient is wanted it builds it in the graph on every call, so the
 gradient reaches the parameters.
+
+Under a mesh with a model or time axis (parallel/mesh.py) a layer holds
+its `Axes`: the model group when its output channels are split over the
+model ranks, the time group when it runs on this rank's block of the clip
+axis. `ConvBlock.forward` then does its part with the same kernels and
+the collectives of parallel/collectives.py (see `ConvBlock`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 
 from drn_tpu_torch.config import ModelConfig
 from drn_tpu_torch.ops.cuda.autograd import (ConvLnReluFn,
-                                             FusedFusionBlockFn, FusedStemFn)
+                                             FusedFusionBlockFn,
+                                             FusedFusionFn, FusedStemFn)
 from drn_tpu_torch.ops.cuda.conv_block import (LN_EPS,
                                                conv_ln_relu_reference,
                                                layer_norm)
-from drn_tpu_torch.ops.cuda.fused_fusion import fused_fusion_block_reference
+from drn_tpu_torch.ops.cuda.fused_fusion import (fused_fusion_block_reference,
+                                                 fused_fusion_reference)
 from drn_tpu_torch.ops.cuda.stem import fused_stem_reference
+from drn_tpu_torch.parallel.collectives import (gather_channels, halo,
+                                                split_channels, sum_grad,
+                                                sum_over)
 
-__all__ = ["Ops", "KERNEL_OPS", "PLAIN_OPS", "ConvBlock", "cdt",
-           "layer_norm", "linear_time_sample", "packed", "LN_EPS"]
+__all__ = ["Axes", "Ops", "KERNEL_OPS", "PLAIN_OPS", "ConvBlock", "cdt",
+           "layer_norm", "linear_time_sample", "packed", "split_epilogue",
+           "time_window", "LN_EPS"]
 
 
 class Ops(NamedTuple):
-    """The three kernel functions a model calls."""
+    """The kernel functions a model calls (`fused_fusion`, B4, only under
+    a model axis)."""
 
     conv_ln_relu: Callable
     fused_fusion_block: Callable
     fused_stem: Callable
+    fused_fusion: Optional[Callable] = None
 
 
 # The kernels' autograd Functions (ops/cuda/autograd.py): kernel on a CUDA
 # tensor, plain version on a CPU tensor, forward and recompute backward.
 KERNEL_OPS = Ops(ConvLnReluFn.apply, FusedFusionBlockFn.apply,
-                 FusedStemFn.apply)
+                 FusedStemFn.apply, FusedFusionFn.apply)
 # The plain versions on any device, differentiated by autograd: the model
 # that the kernels' model is held against on the card.
 PLAIN_OPS = Ops(conv_ln_relu_reference, fused_fusion_block_reference,
-                fused_stem_reference)
+                fused_stem_reference, fused_fusion_reference)
+
+
+class Axes(NamedTuple):
+    """A layer's place on the mesh: `model`, the model group when its
+    output channels are split; `time`, the time group when it runs on a
+    block of the clip axis (None: whole)."""
+
+    model: Any = None
+    time: Any = None
+
+
+WHOLE = Axes()
+
+
+def time_window(k: int, stride: int, length: int):
+    """A SAME conv of width `k` on a time block of `length` rows: (left,
+    right) halo rows, then the rows [lo, hi) of the kernel's SAME output
+    on the extended block that are this block's. Stride 1: k // 2 rows
+    each side. Stride 2 (k = 3, even T): XLA's SAME pads 0 left and 1
+    right, so output o reads rows 2o..2o+2; two right rows make the
+    extension's length even, where the kernel's own SAME padding is again
+    0 left, and its first length / 2 outputs are this block's."""
+    if k == 1:
+        return 0, 0, 0, length // stride
+    if stride == 1 and k % 2:
+        return k // 2, k // 2, k // 2, k // 2 + length
+    if stride == 2 and k == 3 and length % 2 == 0:
+        return 0, 2, 0, length // 2
+    raise ValueError(f"no time-split form for k={k}, stride={stride}, "
+                     f"{length} rows")
+
+
+def row_sums(y: torch.Tensor) -> torch.Tensor:
+    """(..., C) → (..., 2): each row's Σy and Σy² in fp32."""
+    y = y.float()
+    return torch.stack([y.sum(-1), (y * y).sum(-1)], -1)
+
+
+def block_layer_norm(y: torch.Tensor, sums: torch.Tensor,
+                     scale: torch.Tensor, offset: torch.Tensor,
+                     width: int) -> torch.Tensor:
+    """flax's LayerNorm (fast variance, eps 1e-6) of a channel block `y`
+    of `width`-wide rows whose `row_sums` over every block are `sums`;
+    `scale` / `offset` are the block's. fp32."""
+    mean, msq = (sums / width).split(1, -1)
+    var = (msq - mean * mean).clamp_min(0.0)
+    return (y.float() - mean) * (torch.rsqrt(var + LN_EPS) * scale.float()) \
+        + offset.float()
+
+
+def split_epilogue(y: torch.Tensor, scale: Optional[torch.Tensor],
+                   offset: Optional[torch.Tensor], width: int,
+                   use_act: bool, group) -> torch.Tensor:
+    """The fused kernels' epilogue on a channel block `y` of a `width`-wide
+    layer: the LayerNorm from the rows' sums added up over `group`
+    (`scale` None: none), the ReLU, then the blocks gathered → (...,
+    width) in y's dtype (the kernels' output type). `scale` / `offset`
+    are whole."""
+    dtype = y.dtype
+    y = y.float()
+    if scale is not None:
+        y = block_layer_norm(y, sum_over(row_sums(y), group),
+                             split_channels(scale, group),
+                             split_channels(offset, group), width)
+    if use_act:
+        y = torch.relu(y)
+    return gather_channels(y.to(dtype), group)
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
@@ -95,6 +176,7 @@ class ConvBlock(nn.Module):
         self.cfg, self.stride, self.use_act, self.ops = cfg, stride, use_act, ops
         self.conv = nn.Conv1d(in_c, out_c, k, stride)
         self.norm = nn.LayerNorm(out_c, eps=LN_EPS) if use_norm else None
+        self.axes = WHOLE
 
     def _pack(self):
         dt = cdt(self.cfg)
@@ -113,9 +195,38 @@ class ConvBlock(nn.Module):
         if self.norm is not None:
             ps += [self.norm.weight, self.norm.bias]
         w, b, scale, offset = packed(self, self._pack, *ps, dtype=cdt(self.cfg))
-        return self.ops.conv_ln_relu(x.to(cdt(self.cfg)).contiguous(), w, b,
-                                     scale, offset, self.stride,
-                                     self.norm is not None, self.use_act)
+        x = x.to(cdt(self.cfg))
+        if self.axes == WHOLE:
+            return self.ops.conv_ln_relu(x.contiguous(), w, b, scale, offset,
+                                         self.stride, self.norm is not None,
+                                         self.use_act)
+        return self._split(x, w, b, scale, offset)
+
+    def _split(self, x, w, b, scale, offset):
+        """The block's part under its `axes`. Time: the block with its
+        halo rows (`time_window`), the kernel SAME on it, this block's
+        rows kept. Model: the kernel on this rank's output channels with
+        its epilogue off, then `split_epilogue`; the input's gradient is
+        the sum of every channel block's (`sum_grad`)."""
+        model, time = self.axes
+        k = self.conv.kernel_size[0]
+        left, right, lo, hi = 0, 0, 0, None
+        if time is not None:
+            left, right, lo, hi = time_window(k, self.stride, x.shape[1])
+            x = halo(x, left, right, time)
+        if model is None:
+            y = self.ops.conv_ln_relu(x.contiguous(), w, b, scale, offset,
+                                      self.stride, self.norm is not None,
+                                      self.use_act)
+            return y[:, lo:hi]
+        ones = torch.ones(w.shape[2], device=w.device)
+        y = self.ops.conv_ln_relu(
+            sum_grad(x, model).contiguous(), w, split_channels(b, model),
+            ones, torch.zeros_like(ones), self.stride, False, False)
+        norm = self.norm is not None
+        return split_epilogue(y[:, lo:hi], scale if norm else None,
+                              offset if norm else None,
+                              self.conv.out_channels, self.use_act, model)
 
 
 def linear_time_sample(feat: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

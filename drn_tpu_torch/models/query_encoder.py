@@ -7,6 +7,13 @@ valid prefix flipped in place (padding stays where it is), as flax's
 `flip_sequences` does; outputs at padded positions are masked out of the
 pool, so only valid positions have to agree with the JAX package.
 
+Under a model axis the `query_proj_l` Linears run column-parallel
+(this rank's output rows, then gathered) and the LSTMs' weights are kept
+in gate blocks (parallel/sharding.py): cuDNN's LSTM cannot run on a split
+gate matrix, so each is reassembled, gate block by gate block, right
+before its call (`gather_blocks`, whose gradient is sliced back to this
+rank's block). The encoder runs whole on every rank of both axes.
+
 GloVe mode (`freeze_embeddings=True`, the table holding the pretrained
 rows): the table is read detached, as the JAX package's stop_gradient, so
 no gradient reaches it; the optimizer then sees a zero gradient for it.
@@ -21,6 +28,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from drn_tpu_torch.config import ModelConfig
+from drn_tpu_torch.parallel.collectives import (gather_channels,
+                                                split_channels, sum_grad)
+from drn_tpu_torch.parallel.sharding import gather_blocks
 
 
 def masked_reverse(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -50,6 +60,31 @@ class QueryEncoder(nn.Module):
             lstm.bias_hh_l0.requires_grad_(False)
         self.query_proj = nn.ModuleList(
             [nn.Linear(d, d) for _ in range(cfg.num_levels)])
+        # The model group when the LSTM weights (`lstm_group`) or the
+        # projections' (`proj_group`) are split over it.
+        self.lstm_group = self.proj_group = None
+
+    def _lstm(self, lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
+        if self.lstm_group is None:
+            return lstm(x)[0]
+        # nn.LSTM runs on its `_flat_weights`: the whole weights stand in
+        # for the blocks during the call.
+        flat = lstm._flat_weights
+        lstm._flat_weights = [
+            gather_blocks(p, n, self.lstm_group) if n.startswith("weight")
+            else p for n, p in zip(lstm._flat_weights_names, flat)]
+        try:
+            return lstm(x)[0]
+        finally:
+            lstm._flat_weights = flat
+
+    def _proj(self, level: int, pooled: torch.Tensor) -> torch.Tensor:
+        proj, g = self.query_proj[level], self.proj_group
+        if g is None:
+            return torch.tanh(proj(pooled))
+        y = F.linear(sum_grad(pooled, g), proj.weight,
+                     split_channels(proj.bias, g))
+        return gather_channels(torch.tanh(y), g)
 
     def forward(self, word_ids: torch.Tensor,
                 query_mask: torch.Tensor) -> List[torch.Tensor]:
@@ -62,8 +97,8 @@ class QueryEncoder(nn.Module):
         lengths = query_mask.long().sum(-1).clamp(min=1)
         outs = []
         for fwd, bwd in zip(self.lstm_fwd, self.lstm_bwd):
-            f, _ = fwd(h)
-            r, _ = bwd(masked_reverse(h, lengths))
+            f = self._lstm(fwd, h)
+            r = self._lstm(bwd, masked_reverse(h, lengths))
             h = torch.cat([f, masked_reverse(r, lengths)], dim=-1)
             outs.append(h)
         mask_f = query_mask[..., None].float()
@@ -72,5 +107,5 @@ class QueryEncoder(nn.Module):
         for level in range(cfg.num_levels):
             src = outs[min(level, cfg.num_lstm_layers - 1)]
             pooled = (src * mask_f).sum(1) / denom
-            queries.append(torch.tanh(self.query_proj[level](pooled)))
+            queries.append(self._proj(level, pooled))
         return queries

@@ -88,38 +88,41 @@ class ConvLnReluFn(torch.autograd.Function):
 
 
 class FusedStemFn(torch.autograd.Function):
-    """fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias, cdtype)."""
+    """fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias, cdtype,
+    use_norm, use_act)."""
 
     @staticmethod
     def forward(ctx, x, in_scale, in_bias, w, b, out_scale, out_bias,
-                cdtype=torch.bfloat16):
+                cdtype=torch.bfloat16, use_norm=True, use_act=True):
         ctx.save_for_backward(x, in_scale, in_bias, w, b, out_scale, out_bias)
-        ctx.cdtype = cdtype
+        ctx.conf = (cdtype, use_norm, use_act)
         return fused_stem(x, in_scale, in_bias, w, b, out_scale, out_bias,
-                          cdtype)
+                          cdtype, use_norm, use_act)
 
     @staticmethod
     def backward(ctx, g):
         x, in_scale, in_bias, w, b, out_scale, out_bias = ctx.saved_tensors
         need = ctx.needs_input_grad
         ones, zeros = _identity_epilogue(w.shape[2], x.device)
-        pre = fused_stem(x, in_scale, in_bias, w, b, ones, zeros, ctx.cdtype,
+        cdtype, use_norm, use_act = ctx.conf
+        pre = fused_stem(x, in_scale, in_bias, w, b, ones, zeros, cdtype,
                          False, False)
-        dpre, ds, do = epilogue_vjp(pre, out_scale, out_bias, g, True, True)
+        dpre, ds, do = epilogue_vjp(pre, out_scale, out_bias, g, use_norm,
+                                    use_act)
         db = dpre.float().sum((0, 1)).to(b.dtype) if need[4] else None
         need_in = any(need[:3])
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip((x, in_scale, in_bias), need[:3])]
             xn = layer_norm(*ins)
-        dxn, dw = conv_vjp(dpre, xn.detach().to(ctx.cdtype), w, 1, need_in,
+        dxn, dw = conv_vjp(dpre, xn.detach().to(cdtype), w, 1, need_in,
                            need[3])
         grads = [None] * 3
         if need_in:
             wanted = [t for t in ins if t.requires_grad]
             got = iter(torch.autograd.grad(xn, wanted, dxn.float()))
             grads = [next(got) if t.requires_grad else None for t in ins]
-        return (*grads, dw, db, ds, do, None)
+        return (*grads, dw, db, ds, do, None, None, None)
 
 
 class FusedFusionBlockFn(torch.autograd.Function):

@@ -1,24 +1,34 @@
-"""Data parallelism over a torch.distributed process group (counterpart of
-drn_tpu/parallel/mesh.py).
+"""The ("data", "model", "time") mesh over a torch.distributed process
+group (counterpart of drn_tpu/parallel/mesh.py).
 
 The JAX package lays its devices out as a ("data", "model", "time") mesh
-and lets XLA's SPMD partitioner insert the collectives. The port has the
-"data" axis: one process per GPU in a process group (NCCL on the card,
-gloo on the CPU), the model replicated in every process and wrapped in
-DistributedDataParallel by the trainer, each rank holding its row block
-of the same global batch (`row_block`). The reference DRN's only
-parallelism is DDP, so this is the parity configuration. Launch one
-process per GPU with torchrun:
+and lets XLA's SPMD partitioner insert the collectives. The port runs one
+process per GPU in a process group (NCCL on the card, gloo on the CPU),
+laid out as JAX's `make_mesh` lays out its devices: rank =
+((d · model) + m) · time + t, the data axis taking what the other two
+leave. Launch one process per GPU with torchrun:
 
-    torchrun --nproc_per_node=N -m drn_tpu_torch.train --distributed ...
+    torchrun --nproc_per_node=N -m drn_tpu_torch.train --distributed \
+        [--model-axis M] [--time-axis S] ...
 
-Tensor and sequence parallelism (`model_axis` or `time_axis` > 1) are not
-ported: `make_mesh` raises (ROADMAP.md §A item 5). The JAX package's
-`param_shardings` (TP over wide kernels' output channels) and
-`feature_sharding` (the clip axis over "time") belong to them and have no
-counterpart here; nor has `aot_compile_synced`, the rendezvous between
-an XLA executable's compile and its first collective: eager PyTorch
-compiles nothing before a step, and `barrier` is the rendezvous.
+- "data": each data rank holds its row block of the same global batch
+  (`row_block`). With model = time = 1 the trainer wraps the model in
+  DistributedDataParallel over the whole group, the reference DRN's one
+  parallelism.
+- "model" (tensor parallelism): the wide kernels' output channels are
+  split over the model ranks (parallel/sharding.py, the rule of JAX's
+  `param_shardings`); each layer computes its channel block and gathers
+  the rest (models/layers.py::ConvBlock).
+- "time" (sequence parallelism): each time rank holds its block of the
+  clip axis through the backbone, the fusion and the FPN, with halo rows
+  from its neighbours for the k = 3 convs; the pyramid is gathered
+  before the heads (`time_slice`, parallel/collectives.py).
+
+Each axis has its sub-group (`data_group`, `model_group`, `time_group`;
+None for an axis of size 1), made once a process group, collectively.
+`aot_compile_synced`, the JAX package's rendezvous between an XLA
+executable's compile and its first collective, has no counterpart: eager
+PyTorch compiles nothing before a step, and `barrier` is the rendezvous.
 """
 
 from __future__ import annotations
@@ -37,13 +47,27 @@ DEFAULT_TIMEOUT_S = 600.0
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
-def check_axes(model_axis: int = 1, time_axis: int = 1) -> None:
-    """Raise for a tensor- or sequence-parallel layout."""
-    if model_axis > 1 or time_axis > 1:
-        raise NotImplementedError(
-            f"model_axis={model_axis}, time_axis={time_axis}: tensor and "
-            "sequence parallelism are not ported (ROADMAP.md §A item 5); "
-            "the port runs data parallel only")
+def check_axes(model_axis: int = 1, time_axis: int = 1,
+               world: Optional[int] = None, cfg=None) -> None:
+    """Raise ValueError for a layout the port cannot run: an axis below 1,
+    a world size that model · time does not divide, or (given the
+    ExperimentConfig `cfg`) a clip grid whose T does not split into time
+    blocks of even length at every level but the last (T divisible by
+    time · 2**(num_levels-1)), which the stride-2 levels' halos and the
+    FPN's upsampling need to line up across ranks."""
+    if model_axis < 1 or time_axis < 1:
+        raise ValueError(f"model_axis={model_axis}, time_axis={time_axis}: "
+                         "each axis needs at least 1 rank")
+    if world is not None and world % (model_axis * time_axis):
+        raise ValueError(f"a world of {world} ranks does not divide into "
+                         f"model_axis={model_axis} x time_axis={time_axis}")
+    if cfg is not None and time_axis > 1:
+        t, levels = cfg.data.num_clips, cfg.model.num_levels
+        unit = time_axis * 2 ** (levels - 1)
+        if t % unit:
+            raise ValueError(
+                f"num_clips={t} does not split over time_axis={time_axis}: "
+                f"T must be divisible by time · 2**(num_levels-1) = {unit}")
 
 
 def init_distributed(device=None,
@@ -76,12 +100,14 @@ def init_distributed(device=None,
 
 @dataclass(frozen=True)
 class Mesh:
-    """The data axis: this process's place in the group. `device` is
+    """This process's place in the group and on each axis. `device` is
     cuda:<local rank> under NCCL, and None under gloo, where the caller
-    names the device (cuda unless it asks for the CPU). `group` carries
-    the collectives (DDP's gradients, the loss's sums, the eval counts);
-    `flags` is a gloo group for host-side flags and barriers, which never
-    wait on the card."""
+    names the device (cuda unless it asks for the CPU). `group` is the
+    whole group (DDP's gradients when model = time = 1); `flags` is a gloo
+    group for host-side flags and barriers, which never wait on the card.
+    `data_group` carries the loss's sums, the eval counts and the
+    gradients' mean; `model_group` and `time_group` the layers'
+    collectives (None for an axis of size 1)."""
 
     rank: int
     world: int
@@ -89,41 +115,100 @@ class Mesh:
     device: Optional[torch.device]
     group: Any
     flags: Any
+    model_axis: int = 1
+    time_axis: int = 1
+    data_rank: int = 0
+    model_rank: int = 0
+    time_rank: int = 0
+    data_group: Any = None
+    model_group: Any = None
+    time_group: Any = None
+
+    @property
+    def data_world(self) -> int:
+        return self.world // (self.model_axis * self.time_axis)
+
+    @property
+    def sharded(self) -> bool:
+        """A model or time axis over more than one rank."""
+        return self.model_axis > 1 or self.time_axis > 1
 
 
-# The mesh of the live default group, made once: its gloo side group is
-# made collectively, so a mesh made anew at each call would need every
-# rank's call, and would leak a group each time.
-_MESH: Optional[Mesh] = None
+def _axis_groups(world: int, model: int, time: int, rank: int):
+    """Every sub-group of each axis, made in the same order on every rank
+    (`new_group` is collective); this rank's group of each axis (None for
+    an axis of size 1; the whole group for a data axis that spans it)."""
+    data = world // (model * time)
+    at = lambda d, m, t: (d * model + m) * time + t  # noqa: E731
+    axes = {"data": [[at(d, m, t) for d in range(data)]
+                     for m in range(model) for t in range(time)],
+            "model": [[at(d, m, t) for m in range(model)]
+                      for d in range(data) for t in range(time)],
+            "time": [[at(d, m, t) for t in range(time)]
+                     for d in range(data) for m in range(model)]}
+    mine = {}
+    for name, groups in axes.items():
+        if len(groups[0]) == 1:
+            mine[name] = None
+        elif len(groups[0]) == world:
+            mine[name] = dist.group.WORLD
+        else:
+            for ranks in groups:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mine[name] = g
+    return mine
+
+
+# The meshes of the live default group, each made once: their side groups
+# are made collectively, so a mesh made anew at each call would need
+# every rank's call, and would leak groups each time. `_GROUP` is the
+# group they were made in.
+_MESHES: dict = {}
+_GROUP: Any = None
 
 
 def make_mesh(model_axis: int = 1, time_axis: int = 1) -> Mesh:
-    """The data-parallel mesh of the initialised default group, made once
-    a group (every rank must make it at the same point: the gloo side
-    group under NCCL is a collective); `model_axis` or `time_axis` > 1
-    raises."""
-    global _MESH
-    check_axes(model_axis, time_axis)
+    """The ("data", "model", "time") mesh of the initialised default
+    group, made once a group and layout (every rank must make it at the
+    same point: its sub-groups are collectives)."""
+    global _GROUP
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed() (or "
                            "torch.distributed.init_process_group) first")
-    world_group = dist.group.WORLD
-    if _MESH is None or _MESH.group is not world_group:
+    world_group, world = dist.group.WORLD, dist.get_world_size()
+    check_axes(model_axis, time_axis, world)
+    if _GROUP is not world_group:
+        _MESHES.clear()
+        _GROUP = world_group
+    key = (model_axis, time_axis)
+    if key not in _MESHES:
         nccl = dist.get_backend() == "nccl"
         local = int(os.environ.get("LOCAL_RANK", 0))
-        _MESH = Mesh(rank=dist.get_rank(), world=dist.get_world_size(),
-                     local_rank=local,
-                     device=torch.device("cuda", local) if nccl else None,
-                     group=world_group,
-                     flags=dist.new_group(backend="gloo") if nccl
-                     else world_group)
-    return _MESH
+        flags = next((m.flags for m in _MESHES.values()), None)
+        if flags is None:
+            flags = dist.new_group(backend="gloo") if nccl else world_group
+        rank = dist.get_rank()
+        groups = _axis_groups(world, model_axis, time_axis, rank)
+        _MESHES[key] = Mesh(
+            rank=rank, world=world, local_rank=local,
+            device=torch.device("cuda", local) if nccl else None,
+            group=world_group, flags=flags, model_axis=model_axis,
+            time_axis=time_axis,
+            data_rank=rank // (model_axis * time_axis),
+            model_rank=rank // time_axis % model_axis,
+            time_rank=rank % time_axis, data_group=groups["data"],
+            model_group=groups["model"], time_group=groups["time"])
+    return _MESHES[key]
 
 
 def current_mesh() -> Optional[Mesh]:
-    """`make_mesh()` inside an initialised process group, else None."""
-    return make_mesh() if dist.is_available() and dist.is_initialized() \
-        else None
+    """The data mesh (`make_mesh()`: every rank on the data axis) of the
+    initialised process group, else None. A model or time layout is never
+    implied: a caller that wants one passes its mesh."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return make_mesh()
 
 
 def row_block(batch, rank: int, world: int,
@@ -149,6 +234,31 @@ def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     out = t.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def time_block(t: int, mesh: Optional[Mesh]) -> tuple:
+    """This time rank's rows [start, end) of a T-row clip axis."""
+    if mesh is None or mesh.time_axis == 1:
+        return 0, t
+    n = t // mesh.time_axis
+    return mesh.time_rank * n, (mesh.time_rank + 1) * n
+
+
+# The stem's k = 3 window: rows a time rank reads beyond its block.
+STEM_HALO = 1
+
+
+def time_slice(batch: dict, mesh: Optional[Mesh]) -> dict:
+    """The batch a time rank moves to its device: its block of the
+    features' clip axis, with STEM_HALO rows on each side where the clip
+    axis goes on (models/backbone.py trims the stem's output to the
+    block). Every other array is the whole batch's."""
+    if mesh is None or mesh.time_axis == 1 or "features" not in batch:
+        return batch
+    t = batch["features"].shape[1]
+    s, e = time_block(t, mesh)
+    return {**batch, "features": batch["features"][
+        :, max(s - STEM_HALO, 0):min(e + STEM_HALO, t)]}
 
 
 def any_rank(flag: bool) -> bool:

@@ -34,9 +34,23 @@ Rank 0 alone writes checkpoints, `best/` and the logs; the checkpoint is
 the bare model's state_dict, so a directory that N ranks wrote is read
 unchanged by one process (resume, evaluate, infer, serve, export) and the
 other way round. A preemption stops every rank at the same step, and
-every rank exits 75. Tensor and sequence parallelism (`--model-axis`,
-`--time-axis` > 1) raise (ROADMAP.md §A item 5), as `--device-features`
-in a group of more than one process does.
+every rank exits 75. `--device-features` in a group of more than one
+process raises.
+
+Tensor and sequence parallelism (`--model-axis M`, `--time-axis S` under
+`--distributed`; `train(mesh=make_mesh(M, S))`): the wide weights are
+split over the model ranks (parallel/sharding.py) and the clip axis over
+the time ranks (the host moves each time rank's block of the features);
+the data axis takes the rest of the ranks. No DDP then: after the
+backward each gradient is summed over the data ranks (the loss is the
+global batch's, as above), and those of the parameters applied to
+time-local activations (backbone, fusion, FPN) over the time ranks too;
+a split gradient is this rank's block, a replicated one the same on
+every model rank (`reduce_gradients`). The clipping norm adds the split
+gradients' squares over the model ranks. Checkpoints hold whole tensors
+(the parameters and Adam's moments gathered; each rank takes its block
+on restore), so a directory written under one layout reads under any
+other, and the model `train` returns is whole on every rank.
 """
 
 from __future__ import annotations
@@ -63,9 +77,13 @@ from drn_tpu_torch.evaluate import (_refuse_out_of_scope, batch_features,
                                     to_device, with_data_flags)
 from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.losses import drn_loss
-from drn_tpu_torch.parallel.mesh import (Mesh, all_sum, barrier, check_axes,
-                                         current_mesh, init_distributed,
-                                         make_mesh)
+from drn_tpu_torch.parallel.mesh import (Mesh, all_sum, any_rank, barrier,
+                                         check_axes, current_mesh,
+                                         init_distributed, make_mesh,
+                                         time_slice)
+from drn_tpu_torch.parallel.sharding import (TIME_LOCAL_PARTS, gather_params,
+                                             shard_model, shard_params,
+                                             unshard_model)
 from drn_tpu_torch.utils.checkpoint import (BestCheckpointTracker,
                                             CheckpointManager,
                                             check_experiment_config,
@@ -102,7 +120,10 @@ class Optimizer:
     accum_steps)` (at least 1), equal boundaries compounded. Clipping:
     g · max_norm / ‖g‖ when ‖g‖ ≥ max_norm, ‖g‖ over the trained
     parameters only. Accumulation: the running mean acc + (g − acc)/(n + 1)
-    of `accum_steps` micro-gradients, one update per cycle."""
+    of `accum_steps` micro-gradients, one update per cycle. Under a model
+    axis the parameters in `split` are this rank's blocks: their squares
+    are added up over `model_group` for the norm, the others counted
+    once."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -127,6 +148,7 @@ class Optimizer:
         self.mu, self.nu = zeros(), zeros()
         self.acc = zeros() if self.accum > 1 else None
         self.last_grad_norm: Optional[torch.Tensor] = None
+        self.split, self.model_group = set(), None
 
     def learning_rate(self, count: int) -> float:
         """optax.piecewise_constant_schedule at `count`, in fp32 as optax
@@ -160,7 +182,7 @@ class Optimizer:
             grads = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
             self.mini_step = 0
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm(names, grads)
         self.last_grad_norm = norm
         # optax: g unchanged when ‖g‖ < max_norm, else g / ‖g‖ · max_norm.
         scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
@@ -189,9 +211,25 @@ class Optimizer:
         self.count = count_inc
         return True
 
+    def global_norm(self, names, grads) -> torch.Tensor:
+        norms = torch.stack(torch._foreach_norm(grads))
+        if not self.split:
+            return torch.linalg.vector_norm(norms)
+        split = torch.tensor([n in self.split for n in names],
+                             device=norms.device)
+        sq = norms * norms
+        blocks = all_sum(sq[split].sum(), self.model_group)
+        return torch.sqrt(blocks + sq[~split].sum())
+
     def state_dict(self) -> dict:
         return {"count": self.count, "mini_step": self.mini_step,
                 "mu": self.mu, "nu": self.nu, "acc": self.acc}
+
+    def map_moments(self, state: dict, fn) -> dict:
+        """`state` (a `state_dict()`) with `fn` applied to each of its
+        moment dicts (mu, nu, acc)."""
+        return {**state, **{k: fn(state[k]) for k in ("mu", "nu", "acc")
+                            if state[k] is not None}}
 
     def load_state_dict(self, state: dict) -> None:
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
@@ -241,10 +279,13 @@ def loss_and_grads(cfg: ExperimentConfig, model: DRN,
     metrics returned are this rank's shares (`global_metrics` sums
     them)."""
     net, world, global_sum = model, 1, None
+    mesh = getattr(model, "mesh", None)
     if isinstance(model, DistributedDataParallel):
         net, group = model.module, model.process_group
         world = dist.get_world_size(group)
         global_sum = lambda t: all_sum(t, group)  # noqa: E731
+    elif mesh is not None and mesh.data_group is not None:
+        global_sum = lambda t: all_sum(t, mesh.data_group)  # noqa: E731
     for p in net.parameters():
         p.grad = None
     out = model(batch_features(batch, table), batch["word_ids"],
@@ -254,17 +295,42 @@ def loss_and_grads(cfg: ExperimentConfig, model: DRN,
                              cfg.data.num_clips, batch["valid"],
                              global_sum=global_sum)
     (loss * world if world > 1 else loss).backward()
+    if mesh is not None:
+        reduce_gradients(net, mesh)
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def reduce_gradients(model: DRN, mesh: Mesh) -> None:
+    """A split model's gradients after its backward, by class of
+    parameter: every one summed over the data ranks (each holds its rows'
+    share of the global loss); those applied to time-local activations
+    (backbone, fusion, FPN) summed over the time ranks as well, each of
+    which saw its block of the clip axis. The rest run whole on every
+    time rank (heads, IoU head, query encoder, whose q sums its gradient
+    over the time ranks where the fusion reads it), and a split gradient
+    is already this rank's block: nothing over the model ranks."""
+    named = [(n, p) for n, p in model.state_dict(keep_vars=True).items()
+             if p.grad is not None]
+    for group, wanted in ((mesh.data_group, lambda n: True),
+                          (mesh.time_group,
+                           lambda n: model.owner(n) in TIME_LOCAL_PARTS)):
+        grads = [p.grad for n, p in named if wanted(n)]
+        if group is None or not grads:
+            continue
+        flat = all_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
 
 def global_metrics(metrics: Dict[str, torch.Tensor],
                    mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
     """A data-parallel step's metrics for the global batch: the ranks'
     shares summed (one all-reduce), num_pos already global."""
-    if mesh is None:
+    if mesh is None or mesh.data_group is None:
         return metrics
     keys = [k for k in metrics if k != "num_pos"]
-    summed = all_sum(torch.stack([metrics[k] for k in keys]), mesh.group)
+    summed = all_sum(torch.stack([metrics[k] for k in keys]),
+                     mesh.data_group)
     return {**metrics, **dict(zip(keys, summed))}
 
 
@@ -379,6 +445,9 @@ def train(cfg: ExperimentConfig, *, device=None,
     is on disk."""
     mesh = mesh or current_mesh()
     _refuse_out_of_scope(cfg, mesh, device_features)
+    split = mesh is not None and mesh.sharded
+    if split:
+        check_axes(mesh.model_axis, mesh.time_axis, mesh.world, cfg)
     dev = resolve_device(device if device is not None
                          else getattr(mesh, "device", None))
     rank0 = mesh is None or mesh.rank == 0
@@ -393,8 +462,8 @@ def train(cfg: ExperimentConfig, *, device=None,
     batches = make_batch_iterator(dataset, cfg.data, shuffle=True,
                                   seed=tc.seed,
                                   pin_memory=dev.type == "cuda",
-                                  rank=mesh.rank if mesh else 0,
-                                  world=mesh.world if mesh else 1)
+                                  rank=mesh.data_rank if mesh else 0,
+                                  world=mesh.data_world if mesh else 1)
     batches.start()  # worker processes start while the model is built
     guard, own_eval = preemption_guard, None
     own_guard = guard is None
@@ -415,7 +484,16 @@ def train(cfg: ExperimentConfig, *, device=None,
                                     allow_mismatch=allow_config_mismatch)
             model.load_state_dict(
                 load_model_state(prefer_best_dir(init_from)))
+        specs = shard_model(model, mesh) if split else {}
+        rank_block = lambda sd: shard_params(  # noqa: E731
+            sd, specs, mesh.model_rank, mesh.model_axis) if split else sd
+        whole = lambda sd: gather_params(  # noqa: E731
+            sd, specs, mesh.model_group) if split else sd
         optimizer = make_optimizer(cfg, steps_per_epoch, model)
+        if split:
+            optimizer.split = {n for n in optimizer.params
+                               if specs[n] is not None}
+            optimizer.model_group = mesh.model_group
         start_step = 0
         if tc.resume:
             check_experiment_config(ckpt_dir, cfg, context="resume",
@@ -429,8 +507,9 @@ def train(cfg: ExperimentConfig, *, device=None,
                         "but no optimizer state (a converted checkpoint?); "
                         "pass it as --init-from, or train into another "
                         "--checkpoint-dir")
-                model.load_state_dict(restored["model"])
-                optimizer.load_state_dict(restored["optimizer"])
+                model.load_state_dict(rank_block(restored["model"]))
+                optimizer.load_state_dict(optimizer.map_moments(
+                    restored["optimizer"], rank_block))
                 start_step = int(restored["step"])
         elif rank0:
             stale = load_experiment_config(ckpt_dir)
@@ -448,12 +527,22 @@ def train(cfg: ExperimentConfig, *, device=None,
         if eval_fn is None and tc.eval_every_epochs > 0:
             eval_fn = own_eval = _default_eval_fn(cfg, dev, vocab, mesh)
         best: Optional[BestCheckpointTracker] = None
-        net = model if mesh is None else _ddp(model, dev, mesh)
+        net = model if mesh is None or split else _ddp(model, dev, mesh)
         train_step = make_train_step(cfg, net, optimizer)
 
         def state(step):
-            return {"model": model.state_dict(), "optimizer":
-                    optimizer.state_dict(), "step": step}
+            """Whole tensors (a collective under a split mesh)."""
+            return {"model": whole(model.state_dict()), "optimizer":
+                    optimizer.map_moments(optimizer.state_dict(), whole),
+                    "step": step}
+
+        def save_due(step) -> bool:
+            """`ckpt.should_save` (rank 0 reads the directory), known to
+            every rank when the save is a collective."""
+            if not split:
+                return rank0 and ckpt.should_save(step)
+            return step % ckpt.interval == 0 and any_rank(
+                rank0 and ckpt.should_save(step))
 
         step, done = 0, False
         for epoch in range(tc.num_epochs):
@@ -466,13 +555,16 @@ def train(cfg: ExperimentConfig, *, device=None,
             step += skip
             model.train()  # cuDNN's LSTM backward runs in training mode only
             for batch in batches.epoch(epoch, skip_batches=skip):
-                metrics = train_step(to_device(batch, dev), table)
+                metrics = train_step(to_device(time_slice(batch, mesh), dev),
+                                     table)
                 step += 1
                 if step % tc.log_every_steps == 0 or step == 1:
                     log.log(step, {"epoch": epoch,
                                    **global_metrics(metrics, mesh)})
-                if rank0 and ckpt.should_save(step):
-                    ckpt.save(step, state(step))
+                if save_due(step):
+                    full = state(step)
+                    if rank0:
+                        ckpt.save(step, full)
                 if max_steps is not None and step >= max_steps:
                     done = True
                     break
@@ -485,14 +577,18 @@ def train(cfg: ExperimentConfig, *, device=None,
             if (eval_fn is not None and not done and tc.eval_every_epochs > 0
                     and (epoch + 1) % tc.eval_every_epochs == 0):
                 val = eval_fn(model, epoch)
+                params = whole(model.state_dict()) if val is not None \
+                    else None
                 if val is not None and rank0:
                     best = best or BestCheckpointTracker(ckpt_dir)
-                    if best.update(step, model.state_dict(), val):
+                    if best.update(step, params, val):
                         log.log(step, {"epoch": epoch,
                                        "best_val_metric": val})
+        full = state(step)
         if rank0:
-            ckpt.save(step, state(step), force=True)
+            ckpt.save(step, full, force=True)
         barrier("train_saved")  # the directory is whole for every rank
+        unshard_model(model)
     finally:
         batches.close()
         if own_eval is not None:
@@ -580,24 +676,32 @@ def main(argv=None):
                         "then read nothing from disk")
     p.add_argument("--model-axis", type=int, default=None,
                    help="tensor-parallel axis size (default: the config's "
-                        "MeshConfig.model_axis); > 1 is not ported")
+                        "MeshConfig.model_axis): ranks that split the wide "
+                        "weights' output channels; needs --distributed")
     p.add_argument("--time-axis", type=int, default=None,
                    help="sequence-parallel axis size (default: the "
-                        "config's MeshConfig.time_axis); > 1 is not ported")
+                        "config's MeshConfig.time_axis): ranks that split "
+                        "the clip axis; needs --distributed")
     p.add_argument("--distributed", action="store_true",
-                   help="data parallel, one process per GPU: join the "
-                        "process group from torchrun's environment (RANK, "
-                        "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); "
-                        "NCCL on cuda, gloo with --device cpu")
+                   help="one process per GPU: join the process group from "
+                        "torchrun's environment (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT); NCCL on "
+                        "cuda, gloo with --device cpu; the data axis "
+                        "takes the ranks the model and time axes leave")
     p.add_argument("--device", default=None,
                    help="torch device; cuda when omitted")
     args = p.parse_args(argv)
 
     cfg = with_data_flags(get_config(args.config), args)
-    check_axes(cfg.mesh.model_axis if args.model_axis is None
-               else args.model_axis,
-               cfg.mesh.time_axis if args.time_axis is None
-               else args.time_axis)
+    model_axis = (cfg.mesh.model_axis if args.model_axis is None
+                  else args.model_axis)
+    time_axis = (cfg.mesh.time_axis if args.time_axis is None
+                 else args.time_axis)
+    check_axes(model_axis, time_axis, cfg=cfg)
+    if (model_axis > 1 or time_axis > 1) and not args.distributed:
+        p.error("--model-axis / --time-axis > 1 split the model over the "
+                "ranks of a process group: launch with torchrun and "
+                "--distributed")
     tr, da = {}, {}
     if args.stage is not None:
         tr["stage"] = args.stage
@@ -627,7 +731,7 @@ def main(argv=None):
     device, mesh, info = args.device, None, {}
     if args.distributed:
         device = init_distributed(args.device)
-        mesh = make_mesh()
+        mesh = make_mesh(model_axis, time_axis)
     try:
         with PreemptionGuard() as guard:
             train(cfg, device=device, init_from=args.init_from,

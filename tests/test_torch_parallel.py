@@ -52,7 +52,7 @@ from drn_tpu_torch.data.pipeline import (BatchIterator, WorkerBatchIterator,
                                          make_dataset)
 from drn_tpu_torch.models import DRN, location_metadata
 from drn_tpu_torch.models.losses import drn_loss
-from drn_tpu_torch.parallel import make_mesh, row_block
+from drn_tpu_torch.parallel import check_axes, make_mesh, row_block
 from drn_tpu_torch.utils.preemption import PREEMPTED_EXIT_CODE
 
 REPO = str(Path(__file__).resolve().parents[1])
@@ -503,15 +503,30 @@ def test_rank_workers_read_their_rows_alone():
                 np.concatenate([got[0][i][k], got[1][i][k]]), v, err_msg=k)
 
 
-def test_the_mesh_refuses_tensor_and_sequence_parallelism():
-    for kw in (dict(model_axis=2), dict(time_axis=2)):
-        with pytest.raises(NotImplementedError, match="§A item 5"):
-            make_mesh(**kw)
+def test_the_mesh_refuses_layouts_it_cannot_split():
+    """What `check_axes` still refuses: an axis below 1, a world that
+    model · time does not divide, a clip grid whose time blocks are not
+    even at every level but the last; and the axes outside a process
+    group."""
+    with pytest.raises(ValueError, match="at least 1"):
+        check_axes(0, 1)
+    with pytest.raises(ValueError, match="does not divide"):
+        check_axes(2, 1, world=3)
+    with pytest.raises(ValueError, match="does not divide"):
+        check_axes(2, 2, world=6)
+    cfg = get_config("synthetic_tiny")  # T = 32, two levels
+    check_axes(1, 16, world=16, cfg=cfg)
+    for t, time in ((36, 4), (32, 32), (30, 2)):
+        short = cfg.replace(data=dataclasses.replace(cfg.data, num_clips=t))
+        with pytest.raises(ValueError, match="does not split"):
+            check_axes(1, time, world=time, cfg=short)
     with pytest.raises(RuntimeError, match="no process group"):
         make_mesh()
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_mesh(model_axis=2)
     with pytest.raises(AssertionError, match="does not split"):
         row_block({"x": np.zeros((6, 2))}, 0, 4)
     for flag in ("--model-axis", "--time-axis"):
-        with pytest.raises(NotImplementedError, match="§A item 5"):
+        with pytest.raises(SystemExit):
             port_train.main(["--config", "synthetic_tiny", flag, "2",
                              "--device", "cpu"])

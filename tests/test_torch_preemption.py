@@ -197,3 +197,57 @@ def test_sigterm_to_the_process_group_spares_the_workers(tmp_path):
             break
         assert time.time() < deadline, "processes of the group outlived it"
         time.sleep(0.1)
+
+
+_LOADER_CHILD = r"""
+import json, os, signal, sys
+from drn_tpu_torch.config import get_config
+from drn_tpu_torch.data.pipeline import WorkerBatchIterator, make_dataset
+
+if __name__ == "__main__":
+    got = []
+    signal.signal(signal.SIGTERM, lambda *_: got.append(1))
+    cfg = get_config("synthetic_tiny")
+    ds = make_dataset(cfg.data, cfg.model)
+    it = WorkerBatchIterator(ds, 8, shuffle=False, num_workers=2)
+    it.start()
+    os.killpg(0, signal.SIGTERM)
+    held = []
+    for w in it._loader._iterator._workers:
+        status = dict(l.split(":\t", 1) for l in
+                      open(f"/proc/{w.pid}/status").read().splitlines()
+                      if l.startswith(("SigIgn", "SigBlk")))
+        bit = 1 << (signal.SIGTERM - 1)
+        held.append(bool((int(status["SigIgn"], 16)
+                          | int(status["SigBlk"], 16)) & bit))
+    n = sum(1 for _ in it.epoch(0))
+    it.close()
+    print(json.dumps({"batches": n, "expected": -(-len(ds) // 8),
+                      "held": held, "parent_signalled": len(got)}))
+"""
+
+
+def test_sigterm_to_a_loader_group_at_start_loses_no_batch(tmp_path):
+    """A group SIGTERM sent the moment the pool is spawned, while the
+    workers' interpreters are still starting: the workers are born with
+    SIGTERM blocked, so none dies, the epoch yields every batch, and the
+    signal still reaches the parent."""
+    script = tmp_path / "loader_child.py"
+    script.write_text(_LOADER_CHILD)
+    proc = subprocess.Popen(
+        [sys.executable, str(script)], cwd=REPO, text=True,
+        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    assert proc.returncode == 0, err[-3000:]
+    res = json.loads(out.strip().splitlines()[-1])
+    assert res["batches"] == res["expected"], res
+    assert res["held"] == [True, True], res
+    assert res["parent_signalled"] == 1, res

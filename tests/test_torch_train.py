@@ -360,7 +360,9 @@ def test_main_trains_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_out_of_scope_options_raise(tmp_path):
-    """Tensor and sequence parallelism are refused (ROADMAP.md §A item 5).
+    """Tensor and sequence parallelism outside a process group are refused
+    (they split the model over its ranks: launch with torchrun and
+    --distributed; tests/test_torch_tensor_parallel.py holds them there).
     Worker processes and a mesh are in scope: one step fed by workers,
     and one step data parallel in a gloo group of this process alone (the
     model in DistributedDataParallel), save what the in-process step
@@ -369,7 +371,7 @@ def test_out_of_scope_options_raise(tmp_path):
     tests/test_torch_parallel.py.)"""
     cfg = _loop_config(tmp_path)
     for flag in ("--model-axis", "--time-axis"):
-        with pytest.raises(NotImplementedError, match="§A item 5"):
+        with pytest.raises(SystemExit):
             port_train.main(["--config", "synthetic_tiny", flag, "2",
                              "--device", "cpu"])
     port_train.train(cfg, device="cpu", max_steps=1)

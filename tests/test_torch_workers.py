@@ -8,6 +8,7 @@ none of the consumed examples, counted in the workers themselves.
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import pytest
@@ -68,6 +69,22 @@ class _CountingDS:
         open(self.log, "w").close()
 
 
+class _StuckDS:
+    """Examples from index `stuck` on never come: the worker reading one
+    sleeps (SIGTERM, ignored by the workers, does not wake it)."""
+
+    def __init__(self, inner, stuck):
+        self.inner, self.stuck = inner, stuck
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getitem__(self, i):
+        if i >= self.stuck:
+            time.sleep(600)
+        return self.inner[i]
+
+
 @pytest.fixture(scope="module")
 def workers(ds, tmp_path_factory):
     """One pool of 2 workers for the module over the counted, pid-tagged
@@ -122,6 +139,24 @@ def test_worker_processes(workers):
     pids = {int(p) for b in workers.epoch(0) for p in b["pid"][b["valid"]]}
     assert os.getpid() not in pids
     assert len(pids) == 2  # three batches over two workers
+
+
+def test_close_stops_a_worker_that_ignores_its_shutdown(ds, monkeypatch):
+    """A worker still busy when the loader shuts its pool down outlives
+    the loader's own last resort (`terminate()`, a SIGTERM the workers
+    ignore): close() kills it after WORKER_EXIT_S, so no worker outlives
+    the iterator."""
+    monkeypatch.setattr(pipeline, "WORKER_EXIT_S", 1.0)
+    it = WorkerBatchIterator(_StuckDS(ds, 8), 8, shuffle=False,
+                             num_workers=2)
+    batches = it.epoch(0)
+    assert next(batches)["features"].shape[0] == 8  # the second sticks
+    procs = list(it._loader._iterator._workers)
+    t0 = time.monotonic()
+    it.close()
+    assert not any(w.is_alive() for w in procs)
+    assert time.monotonic() - t0 < 60
+    batches.close()
 
 
 def test_make_batch_iterator_dispatch(ds):
