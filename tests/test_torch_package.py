@@ -23,6 +23,7 @@ from drn_tpu_torch.parallel import make_mesh
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "drn_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+PORT_SCRIPTS = sorted((ROOT / "drn_tpu_torch" / "scripts").glob("*.sh"))
 
 
 @pytest.mark.parametrize("name", jax_config.list_configs())
@@ -82,7 +83,7 @@ def test_port_imports_no_jax_and_nothing_of_drn_tpu():
             "drn_tpu_torch.probes.train_mfu"} <= set(PORT_MODULES)
 
 
-@pytest.mark.parametrize("path", PORT_SOURCES,
+@pytest.mark.parametrize("path", PORT_SOURCES + PORT_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_names_no_jax_nor_drn_tpu(path):
     text = path.read_text()
@@ -92,6 +93,11 @@ def test_port_source_names_no_jax_nor_drn_tpu(path):
     # that is not followed by `_torch`.
     assert not re.search(r"\bdrn_tpu\.", text)
     assert not re.search(r"^\s*(import|from)\s+drn_tpu\b(?!_)", text, re.M)
+    if path.suffix == ".sh":  # the recipe scripts run the port's CLIs only
+        assert not re.search(r"\bjax", text)
+        modules = re.findall(r"python\s+-m\s+(\S+)", text)
+        assert modules and all(m.startswith("drn_tpu_torch.")
+                               for m in modules), modules
 
 
 @pytest.fixture

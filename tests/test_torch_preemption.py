@@ -102,32 +102,75 @@ def test_a_process_group_of_several_raises(monkeypatch):
 
 
 def _spawn_trainer(ckpt_dir, max_steps, *extra, **popen_kw):
+    """The train CLI on one torch thread, as the loader child runs. With
+    its default of one OpenMP thread a core, the child's threads spin at
+    every parallel region's barrier while the test run's other processes
+    hold the cores: on 8 cores under 6 xdist workers a synthetic_tiny step
+    took 8.2 s instead of 0.07 s, so a 10-step child ran past
+    CHILD_TIMEOUT_S and was killed (rc -9)."""
     return subprocess.Popen(
         [sys.executable, "-u", "-m", "drn_tpu_torch.train", "--config",
          "synthetic_tiny", "--device", "cpu", "--epochs", "50",
          "--max-steps", str(max_steps), "--checkpoint-dir", str(ckpt_dir),
          *extra],
-        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-        text=True, **popen_kw)
+        cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        **popen_kw)
 
 
 def _run(proc, on_line=None):
-    """Stream the child's stderr lines to `on_line`; its exit code and
-    the lines. The child is killed after CHILD_TIMEOUT_S."""
+    """Stream the child's stderr lines to `on_line`; its exit code, the
+    lines, and the seconds from the call to each stage ("step 1": the
+    '"step": 1,' line; "eof": its stderr closed by every process holding
+    it; "exit"). The child is killed after CHILD_TIMEOUT_S."""
+    t0 = time.monotonic()
+    times = {}
     killer = threading.Timer(CHILD_TIMEOUT_S, proc.kill)
     killer.start()
     lines = []
     try:
         for line in proc.stderr:
             lines.append(line)
+            if "step 1" not in times and '"step": 1,' in line:
+                times["step 1"] = round(time.monotonic() - t0, 2)
             if on_line:
                 on_line(line)
+        times["eof"] = round(time.monotonic() - t0, 2)
         rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+        times["exit"] = round(time.monotonic() - t0, 2)
     finally:
         killer.cancel()
         if proc.poll() is None:
             proc.kill()
-    return rc, lines
+    return rc, lines, times
+
+
+def _evidence(rc, lines, times):
+    """What a failed assertion on a child run prints: its exit code, the
+    seconds to each stage, and its last 30 stderr lines."""
+    return (f"rc {rc}, seconds {times}, timeout {CHILD_TIMEOUT_S}; "
+            "last stderr lines:\n" + "".join(lines[-30:]))
+
+
+def _group_members(pgid):
+    """(pid, ppid, state, cmdline) of every process of group `pgid`, read
+    from /proc/<pid>/stat; state Z is a zombie that its parent has not yet
+    reaped, not a live process."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        state, ppid, pgrp = stat[stat.rindex(")") + 2:].split()[:3]
+        if int(pgrp) == pgid:
+            out.append((int(d), int(ppid), state, cmd.strip()))
+    return out
 
 
 def test_sigterm_saves_checkpoint_and_exits_75_then_resumes(tmp_path):
@@ -140,15 +183,16 @@ def test_sigterm_saves_checkpoint_and_exits_75_then_resumes(tmp_path):
             sent.append(True)
             proc.send_signal(signal.SIGTERM)
 
-    rc, lines = _run(proc, on_line)
-    assert rc == PREEMPTED_EXIT_CODE, "".join(lines[-20:])
+    rc, lines, times = _run(proc, on_line)
+    why = _evidence(rc, lines, times)
+    assert rc == PREEMPTED_EXIT_CODE, why
     preempted = [json.loads(l) for l in lines if '"preempted"' in l]
-    assert len(preempted) == 1
+    assert len(preempted) == 1, why
     saved_step = preempted[0]["step"]
     assert saved_step >= 1
     stage_dir = ckpt_dir / "synthetic_tiny" / "stage1"
     steps = sorted(int(p.stem) for p in stage_dir.glob("*.pth"))
-    assert saved_step in steps, (saved_step, steps)
+    assert saved_step in steps, (saved_step, steps, why)
     assert torch.load(stage_dir / f"{saved_step}.pth",
                       weights_only=True)["step"] == saved_step
 
@@ -156,13 +200,14 @@ def test_sigterm_saves_checkpoint_and_exits_75_then_resumes(tmp_path):
     # it logs that step and not step 1, which a fresh start would log,
     # and its final save lands there.
     target = (saved_step // 10 + 1) * 10
-    rc2, lines2 = _run(_spawn_trainer(ckpt_dir, target))
-    assert rc2 == 0, "".join(lines2[-20:])
+    rc2, lines2, times2 = _run(_spawn_trainer(ckpt_dir, target))
+    why2 = _evidence(rc2, lines2, times2)
+    assert rc2 == 0, why2
     logged = [json.loads(l)["step"] for l in lines2
               if l.startswith("{") and '"loss"' in l]
-    assert logged == [target], (saved_step, logged)
+    assert logged == [target], (saved_step, logged, why2)
     steps_after = sorted(int(p.stem) for p in stage_dir.glob("*.pth"))
-    assert target in steps_after, (saved_step, steps_after)
+    assert target in steps_after, (saved_step, steps_after, why2)
 
 
 def test_sigterm_to_the_process_group_spares_the_workers(tmp_path):
@@ -181,10 +226,11 @@ def test_sigterm_to_the_process_group_spares_the_workers(tmp_path):
             sent.append(True)
             os.killpg(proc.pid, signal.SIGTERM)
 
-    rc, lines = _run(proc, on_line)
-    assert sent and rc == PREEMPTED_EXIT_CODE, "".join(lines[-20:])
+    rc, lines, times = _run(proc, on_line)
+    why = _evidence(rc, lines, times)
+    assert sent and rc == PREEMPTED_EXIT_CODE, why
     preempted = [json.loads(l) for l in lines if '"preempted"' in l]
-    assert len(preempted) == 1
+    assert len(preempted) == 1, why
     saved = ckpt_dir / "synthetic_tiny" / "stage1" / \
         f"{preempted[0]['step']}.pth"
     assert torch.load(saved, weights_only=True)["step"] == \
@@ -195,7 +241,9 @@ def test_sigterm_to_the_process_group_spares_the_workers(tmp_path):
             os.killpg(proc.pid, 0)
         except ProcessLookupError:
             break
-        assert time.time() < deadline, "processes of the group outlived it"
+        assert time.time() < deadline, (
+            "processes of the group outlived it (pid, ppid, state, "
+            f"cmdline): {_group_members(proc.pid)}; {why}")
         time.sleep(0.1)
 
 

@@ -17,7 +17,8 @@ resumes that checkpoint for two steps with an eval at the first epoch's
 end. At `min_width` 32 (JAX's `tp_min_width=32`, as
 tests/test_sharding.py's hybrid test) the model axis splits every 64-wide
 weight and the LSTMs' 32-row gate blocks; only the plain versions take
-such blocks, on the CPU.
+such blocks, on the CPU. A launch of four ranks evaluates one set of
+weights under (2, 2, 1) in bf16 and in fp32 against one process.
 
 Tolerances, fp32: the loss and every updated parameter within 1e-4 of
 JAX's sharded and unsharded step (tests/test_torch_parallel.py's bar);
@@ -468,3 +469,91 @@ def test_a_split_run_resumes_and_evaluates_as_one_process(two_ranks, axis):
         assert v.shape == one[k].shape, k
     assert torch.load(stage / f"{RESUMED}.pth", weights_only=True)[
         "step"] == RESUMED
+
+
+# evaluate(mesh=) under (data 2, model 2, time 1) on 4 ranks, in bf16 and
+# in fp32, of one set of weights: chip_smoke's `mesh` phase holds this
+# layout's recall, on the card in bf16, with `mesh_recall_excess`.
+SPLIT_EVAL = r"""
+import dataclasses, json, sys
+import torch
+torch.set_num_threads(1)
+from drn_tpu_torch.config import get_config
+from drn_tpu_torch.evaluate import build_model, evaluate
+from drn_tpu_torch.parallel import init_distributed, make_mesh, sharding
+
+out, configs = sys.argv[1], json.loads(sys.argv[2])
+init_distributed("cpu", timeout_s=120)
+sharding.TP_MIN_WIDTH = 32
+mesh = make_mesh(2, 1)
+res = {}
+for dtype, overrides in configs.items():
+    cfg = get_config("synthetic_tiny")
+    cfg = cfg.replace(**{s: dataclasses.replace(getattr(cfg, s), **kw)
+                         for s, kw in overrides.items()})
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(torch.load(f"{out}/weights.pth",
+                                     weights_only=True))
+    res[dtype] = evaluate(cfg, model, device="cpu", mesh=mesh)
+if mesh.rank == 0:
+    with open(f"{out}/results.json", "w") as f:
+        json.dump(res, f)
+"""
+RECALL_EXAMPLES = 600  # the test split's queries: one query is 1/6 point
+
+
+def test_a_bf16_data_and_model_split_evaluate_meets_the_mesh_recall_gate(
+        tmp_path):
+    """evaluate(mesh=) under (2, 2, 1) against one process, 600 queries
+    of synthetic_tiny from seeded weights (DRN.init's shifted by noise,
+    as `two_ranks` does): in fp32 every R@n count equal and mIoU within
+    1e-4; in bf16 within the `mesh` phase's recall gate
+    (chip_smoke.mesh_recall_excess, the fp32 evaluate in one process as
+    the fp32 reference). Here the bf16 split part from one process by 2
+    queries at R@5,IoU=0.3 and 0.5 and 1 at 0.7 (`pytest -s` prints the
+    counts), more than the one query the gate allowed before, which is
+    why it holds recall against fp32 metric by metric."""
+    from chip_smoke import mesh_recall_excess
+
+    configs = {dtype: dict(model=dict(dtype=dtype),
+                           data=dict(synthetic_examples=RECALL_EXAMPLES),
+                           eval=dict(batch_size=48))
+               for dtype in ("bfloat16", "float32")}
+    model = port_eval.build_model(get_config("synthetic_tiny"),
+                                  device="cpu", seed=3)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    torch.save(model.state_dict(), tmp_path / "weights.pth")
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", "-c", SPLIT_EVAL, str(tmp_path),
+         json.dumps(configs)], cwd=REPO, env=_rank_env(r, 4, port),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for r in range(4)]
+    for rc, lines in _wait_all(procs):
+        assert rc == 0, "".join(lines[-30:])
+    split = json.loads((tmp_path / "results.json").read_text())
+    one = {}
+    for dtype, overrides in configs.items():
+        cfg = get_config("synthetic_tiny")
+        cfg = cfg.replace(**{s: dataclasses.replace(getattr(cfg, s), **kw)
+                             for s, kw in overrides.items()})
+        m = port_eval.build_model(cfg, device="cpu")
+        m.load_state_dict(model.state_dict())
+        one[dtype] = port_eval.evaluate(cfg, m, device="cpu")
+
+    count = lambda v: round(v * RECALL_EXAMPLES / 100)  # noqa: E731
+    gap = {k: count(split["bfloat16"][k]) - count(v)
+           for k, v in one["bfloat16"].items() if k.startswith("R@")}
+    print("bf16 split - one process, queries:", gap)
+    assert split["float32"].keys() == one["float32"].keys()
+    for k, v in one["float32"].items():
+        if k.startswith("R@"):
+            assert count(split["float32"][k]) == count(v), k
+        else:
+            assert abs(split["float32"][k] - v) <= 1e-4, k
+    excess = mesh_recall_excess(split["bfloat16"], one["bfloat16"],
+                                one["float32"], RECALL_EXAMPLES)
+    assert max(excess.values()) <= 1e-6, (excess, split, one)
