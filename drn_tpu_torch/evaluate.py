@@ -12,6 +12,12 @@ gathers its batch from it. `data.num_workers > 0` builds the batches in
 worker processes (data/pipeline.py::WorkerBatchIterator); the metrics are
 the same.
 
+While a profiler session records, the program opens its own ranges
+(utils/profiling.py::span): `drn.eval.pass` around `evaluate`, in it
+`drn.eval.batch` (the iterator's next batch), `drn.to_device`,
+`drn.eval.step` (holding `drn.eval.gather`, `drn.eval.forward` and
+`drn.eval.post`) and `drn.eval.fetch` (the counts' one host wait).
+
 `--checkpoint-dir` reads a directory the port's trainer wrote (its
 `best/` first unless `--latest-checkpoint`); an Orbax directory is refused
 with the name of its converter, tools/orbax_to_pth.py.
@@ -49,6 +55,7 @@ from drn_tpu_torch.parallel.mesh import (Mesh, all_sum, check_axes,
                                          current_mesh, time_slice)
 from drn_tpu_torch.parallel.sharding import shard_model
 from drn_tpu_torch.utils.checkpoint import restore_params
+from drn_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -123,8 +130,15 @@ def make_eval_step(cfg: ExperimentConfig, model: DRN):
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor],
                   table: Optional[torch.Tensor] = None):
-        out = model(batch_features(batch, table), batch["word_ids"],
-                    batch["query_mask"])
+        with span("eval.step"):
+            with span("eval.gather"):
+                features = batch_features(batch, table)
+            with span("eval.forward"):
+                out = model(features, batch["word_ids"], batch["query_mask"])
+            with span("eval.post"):
+                return post(out, batch)
+
+    def post(out, batch):
         score = torch.sigmoid(out["match_logits"])
         if e.score_use_iou_head and e.score_iou_weight > 0.0:
             iou_s = torch.sigmoid(out["iou_logits"])
@@ -151,7 +165,9 @@ def make_eval_step(cfg: ExperimentConfig, model: DRN):
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+    with span("to_device"):
+        return {k: torch.as_tensor(np.asarray(v)).to(device)
+                for k, v in batch.items()}
 
 
 def _refuse_out_of_scope(cfg: ExperimentConfig, mesh: Optional[Mesh],
@@ -200,7 +216,12 @@ def eval_counts(cfg: ExperimentConfig, model: DRN, batches, device, *,
     the device through the loop; one fetch at the end."""
     step = make_eval_step(cfg, model)
     totals = None
-    for batch in batches.epoch(0):
+    epoch = iter(batches.epoch(0))
+    while True:
+        with span("eval.batch"):
+            batch = next(epoch, None)
+        if batch is None:
+            break
         counts, n_valid, *_ = step(to_device(time_slice(batch, mesh),
                                              device), table)
         if totals is None:
@@ -211,9 +232,10 @@ def eval_counts(cfg: ExperimentConfig, model: DRN, batches, device, *,
                                           + [counts[k] for k in keys])
     if totals is None:
         return {}, 0.0
-    if mesh is not None and mesh.data_group is not None:
-        totals = all_sum(totals, mesh.data_group)
-    n, *rest = totals.double().cpu().tolist()
+    with span("eval.fetch"):
+        if mesh is not None and mesh.data_group is not None:
+            totals = all_sum(totals, mesh.data_group)
+        n, *rest = totals.double().cpu().tolist()
     return dict(zip(keys, rest)), n
 
 
@@ -236,33 +258,34 @@ def evaluate(cfg: ExperimentConfig, model: DRN, dataset=None,
     default the initialised process group's, parallel/mesh.py) each rank
     evaluates its row blocks and every rank returns the whole split's
     metrics."""
-    mesh = mesh or current_mesh()
-    _refuse_out_of_scope(cfg, mesh, device_features)
-    dev = resolve_device(device if device is not None
-                         else getattr(mesh, "device", None))
-    model.to(dev).eval()
-    if mesh is not None and mesh.sharded and model.mesh is not mesh:
-        check_axes(mesh.model_axis, mesh.time_axis, mesh.world, cfg)
-        model = copy.deepcopy(model)
-        shard_model(model, mesh)
-    own = batches is None
-    if own:
-        if table is not None:
-            raise ValueError("a staged table needs the `batches` of its "
-                             "view")
-        if dataset is None:
-            dataset = make_dataset(cfg.data, cfg.model, split=split)
-        if device_features:
-            table, dataset = stage_on_device(dataset, dev)
-        batches = eval_batches(cfg, dataset, dev, mesh)
-    try:
-        totals, n = eval_counts(cfg, model, batches, dev, table=table,
-                                mesh=mesh)
-    finally:
+    with span("eval.pass"):
+        mesh = mesh or current_mesh()
+        _refuse_out_of_scope(cfg, mesh, device_features)
+        dev = resolve_device(device if device is not None
+                             else getattr(mesh, "device", None))
+        model.to(dev).eval()
+        if mesh is not None and mesh.sharded and model.mesh is not mesh:
+            check_axes(mesh.model_axis, mesh.time_axis, mesh.world, cfg)
+            model = copy.deepcopy(model)
+            shard_model(model, mesh)
+        own = batches is None
         if own:
-            batches.close()
-    return {metric_name(k): 100.0 * v / max(n, 1.0)
-            for k, v in totals.items()}
+            if table is not None:
+                raise ValueError("a staged table needs the `batches` of "
+                                 "its view")
+            if dataset is None:
+                dataset = make_dataset(cfg.data, cfg.model, split=split)
+            if device_features:
+                table, dataset = stage_on_device(dataset, dev)
+            batches = eval_batches(cfg, dataset, dev, mesh)
+        try:
+            totals, n = eval_counts(cfg, model, batches, dev, table=table,
+                                    mesh=mesh)
+        finally:
+            if own:
+                batches.close()
+        return {metric_name(k): 100.0 * v / max(n, 1.0)
+                for k, v in totals.items()}
 
 
 def predict(cfg: ExperimentConfig, model: DRN, batch: Dict[str, np.ndarray],

@@ -20,6 +20,10 @@ gathered whole before the heads; the heads, the IoU head's sampling
 (which reads any position of a level), decode and scoring then run the
 same on every time rank. The layers whose weights are split run on their
 output-channel block (models/layers.py).
+
+While a profiler session records, each part's forward is the program's
+range `drn.model.<part>` (utils/profiling.py::span); decode and the time
+gather stay in the caller's range.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from drn_tpu_torch.ops.cuda.conv_block import KERNEL_COUTS
 from drn_tpu_torch.parallel.collectives import gather_time
 from drn_tpu_torch.models.query_encoder import QueryEncoder
 from drn_tpu_torch.ops.temporal import decode_segments, pyramid_locations
+from drn_tpu_torch.utils.profiling import span
 
 _PARTS = ("query_encoder", "backbone", "fusion", "fpn", "heads", "iou_head")
 
@@ -166,19 +171,25 @@ class DRN(nn.Module):
         return super().load_state_dict(sd, strict=strict, assign=assign)
 
     def forward(self, features, word_ids, query_mask) -> Dict[str, torch.Tensor]:
-        queries = self.query_encoder(word_ids, query_mask)
-        v_levels = self.backbone(features)
-        fused = self.fusion(v_levels, queries)
-        pyramid = self.fpn(fused)
+        with span("model.query_encoder"):
+            queries = self.query_encoder(word_ids, query_mask)
+        with span("model.backbone"):
+            v_levels = self.backbone(features)
+        with span("model.fusion"):
+            fused = self.fusion(v_levels, queries)
+        with span("model.fpn"):
+            pyramid = self.fpn(fused)
         if self.mesh is not None and self.mesh.time_axis > 1:
             pyramid = [gather_time(p, self.mesh.time_group) for p in pyramid]
-        d_start, d_end, match_logits = self.heads(pyramid)
+        with span("model.heads"):
+            d_start, d_end, match_logits = self.heads(pyramid)
         # No gradient through the IoU head's sampling positions (the
         # two-stage recipe), as the JAX package's stop_gradient.
         segments = decode_segments(self.locations, d_start, d_end,
                                    float(self.base_len)).detach()
-        iou_logits = self.iou_head(pyramid, segments, self.level_ids,
-                                   self.strides)
+        with span("model.iou_head"):
+            iou_logits = self.iou_head(pyramid, segments, self.level_ids,
+                                       self.strides)
         return {
             "d_start": d_start,            # (B, N) base-grid units
             "d_end": d_end,                # (B, N)

@@ -8,14 +8,19 @@ Builds the model at the config's full width with seeded weights, takes one
 device-resident batch of the synthetic fixture (eval.batch_size examples,
 or data.batch_size with --train), and prints one JSON line:
 
-  * `step_ms`: host clock around synchronised runs of the whole step (a
-    stage-1 train step with --train: forward, loss, backward, optimizer);
-    `forward_ms`, eval only: the model forward alone (the rest is scoring,
-    top-k, NMS and recall counts);
-  * from a `torch.profiler` trace of `--steps` steps: the device time per
-    step of every kernel (the sum, and the union of kernel intervals, whose
-    complement in the step is the device's idle share), grouped by kernel
-    name, the top ones listed, and the share of the port's own kernels.
+  * `step_ms`: host clock around pipelined runs of the whole step (a
+    stage-1 train step with --train: forward, loss, backward, optimizer),
+    with no profiler running;
+  * from ONE `torch.profiler` trace of `--steps` steps, a step each: the
+    trace's window (`traced_step_ms`), the device's busy time in it and
+    its idle share (`idle_share`, 1 − busy ÷ window, both from that
+    trace), the kernels by name, the top ones listed, the share of the
+    port's own kernels, and `spans`: for each of the program's ranges
+    (`drn.eval.*`, `drn.train.*`, `drn.model.<part>`;
+    utils/profiling.py::span) the device ms of the kernels launched
+    inside it (children included), of those it launched in its own time,
+    and the device's idle ms while it was the innermost range open on
+    the main thread; `outside`, the same of what no range holds.
 
 Runs on `cuda` only; with no card it raises.
 """
@@ -34,7 +39,7 @@ from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
 from drn_tpu_torch.evaluate import (build_model, make_eval_step,
                                     resolve_device, to_device)
 from drn_tpu_torch.train import make_optimizer, make_train_step
-from drn_tpu_torch.utils.profiling import device_time, host_ms
+from drn_tpu_torch.utils.profiling import host_ms, kernel_stats, span_table
 
 OWN_KERNELS = ("conv_ln_relu_kernel", "stem_kernel", "row_stats_kernel")
 
@@ -50,33 +55,42 @@ def profile(config: str, steps: int, trace: str | None, top: int = 15,
     batch = to_device(next(BatchIterator(
         make_dataset(cfg.data, cfg.model, split="train" if train else "test"),
         bsz, shuffle=False).epoch(0)), dev)
-    forward_ms = None
     if train:
         model.train()
         step = make_train_step(cfg, model, make_optimizer(cfg, 1, model))
-        step_ms = host_ms(lambda: step(batch), 10)
     else:
         step = make_eval_step(cfg, model)
-        args = (batch["features"], batch["word_ids"], batch["query_mask"])
-        step_ms = host_ms(lambda: step(batch), 20)
-        with torch.no_grad():
-            forward_ms = host_ms(lambda: model(*args), 20)
+    step_ms = host_ms(lambda: step(batch), 10 if train else 20)
 
     path = Path(trace or ("profiles/train_step_trace.json" if train
                           else "profiles/eval_step_trace.json"))
     path.parent.mkdir(parents=True, exist_ok=True)
-    stats = device_time(lambda: step(batch), steps, warmup=0, path=str(path))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    stats = kernel_stats([e for e in events if e.get("cat") == "kernel"],
+                         steps)
+    if not stats["kernels"]:
+        raise RuntimeError("the profiler recorded no kernel on the card")
+    spans = span_table(events, steps)
     own_ms = sum(ms for name, _, ms in stats["by_name"]
                  if any(o in name for o in OWN_KERNELS))
     return {
         "phase": "profile_train" if train else "profile", "config": cfg.name,
         "batch_size": bsz, "steps": steps,
-        "step_ms": step_ms, "forward_ms": forward_ms,
+        "step_ms": step_ms, "traced_step_ms": spans["window_ms"],
         "kernels_per_step": stats["kernels"],
         "device_kernel_ms_per_step": stats["kernel_ms"],
-        "device_busy_ms_per_step": stats["busy_ms"],
-        "device_idle_share": max(0.0, 1.0 - stats["busy_ms"] / step_ms),
+        "device_busy_ms_per_step": spans["busy_ms"],
+        "idle_share": 1.0 - spans["busy_ms"] / spans["window_ms"],
         "own_kernel_share_of_device": own_ms / stats["kernel_ms"],
+        "spans": spans["spans"], "outside": spans["outside"],
         "top": [{"name": name[:120], "launches_per_step": n,
                  "ms_per_step": ms} for name, n, ms in stats["by_name"][:top]],
         "trace": str(path),

@@ -10,7 +10,10 @@ or data parallel over a process group.
 A step is forward → `drn_loss` → backward through the kernels' autograd
 Functions (ops/cuda/autograd.py) → the optimizer, which reproduces the JAX
 package's optax chain step for step (`Optimizer`). Entry points run on
-`cuda` unless the caller passes `device="cpu"`, as evaluate's do.
+`cuda` unless the caller passes `device="cpu"`, as evaluate's do. While a
+profiler session records, a step is the range `drn.train.step` holding
+`drn.train.{gather,forward,loss,backward,optimizer}`, and the loop's batch
+fetch is `drn.train.batch` (utils/profiling.py::span).
 
 Real datasets come from `--feature-dir` / `--annotation-path`; with
 `--glove-path` the embedding holds the GloVe rows of the dataset's words
@@ -94,6 +97,7 @@ from drn_tpu_torch.utils.checkpoint import (BestCheckpointTracker,
                                             save_experiment_config)
 from drn_tpu_torch.utils.logging import MetricLogger
 from drn_tpu_torch.utils.preemption import PreemptionGuard, exit_code_for
+from drn_tpu_torch.utils.profiling import span
 
 # Parameters that are constants of the model, never trained: the LSTMs'
 # second bias (flax's cell has one bias per gate; see query_encoder.py).
@@ -159,12 +163,16 @@ class Optimizer:
             v = v * ind + (1 - ind) * scale * v
         return float(v)
 
-    @torch.no_grad()
     def step(self) -> bool:
         """Apply the gradients in `.grad` (None counts as zero); True when
         the parameters were updated, False on an accumulation micro-step.
         Multi-tensor (`torch._foreach_*`) arithmetic: a few launches for
         all parameters, no host synchronisation."""
+        with span("train.optimizer"):
+            return self._step()
+
+    @torch.no_grad()
+    def _step(self) -> bool:
         names = list(self.params)
         if not names:
             return True
@@ -288,15 +296,19 @@ def loss_and_grads(cfg: ExperimentConfig, model: DRN,
         global_sum = lambda t: all_sum(t, mesh.data_group)  # noqa: E731
     for p in net.parameters():
         p.grad = None
-    out = model(batch_features(batch, table), batch["word_ids"],
-                batch["query_mask"])
-    loss, metrics = drn_loss(cfg.model, cfg.train, out, net.locations,
-                             net.level_ids, batch["gt_grid"],
-                             cfg.data.num_clips, batch["valid"],
-                             global_sum=global_sum)
-    (loss * world if world > 1 else loss).backward()
-    if mesh is not None:
-        reduce_gradients(net, mesh)
+    with span("train.gather"):
+        features = batch_features(batch, table)
+    with span("train.forward"):
+        out = model(features, batch["word_ids"], batch["query_mask"])
+    with span("train.loss"):
+        loss, metrics = drn_loss(cfg.model, cfg.train, out, net.locations,
+                                 net.level_ids, batch["gt_grid"],
+                                 cfg.data.num_clips, batch["valid"],
+                                 global_sum=global_sum)
+    with span("train.backward"):
+        (loss * world if world > 1 else loss).backward()
+        if mesh is not None:
+            reduce_gradients(net, mesh)
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -341,9 +353,10 @@ def make_train_step(cfg: ExperimentConfig, model: DRN, optimizer: Optimizer
     updated in place."""
 
     def step(batch, table=None):
-        metrics = loss_and_grads(cfg, model, batch, table)
-        optimizer.step()
-        return metrics
+        with span("train.step"):
+            metrics = loss_and_grads(cfg, model, batch, table)
+            optimizer.step()
+            return metrics
 
     return step
 
@@ -554,7 +567,12 @@ def train(cfg: ExperimentConfig, *, device=None,
             skip = max(start_step - step, 0)  # mid-epoch resume point
             step += skip
             model.train()  # cuDNN's LSTM backward runs in training mode only
-            for batch in batches.epoch(epoch, skip_batches=skip):
+            loader = iter(batches.epoch(epoch, skip_batches=skip))
+            while True:
+                with span("train.batch"):
+                    batch = next(loader, None)
+                if batch is None:
+                    break
                 metrics = train_step(to_device(time_slice(batch, mesh), dev),
                                      table)
                 step += 1

@@ -14,6 +14,12 @@
     function with them. Unlike `cuda_time_ms` it takes any call, one that
     copies from the host included (a CUDA graph cannot capture such a
     copy), and it counts the call's kernels.
+  * `span(name)`: the program's own range `drn.<name>` around a layer of
+    the eval and train steps, recorded only while a `torch.profiler`
+    session is (otherwise one shared no-op context). The ranges land in
+    the session's trace beside the device's kernels, on its clock.
+    `span_table` reads them back from a chrome trace: the device time of
+    the kernels each span launched and the device's idle time under it.
 
 PyTorch on the card returns before the device is done, as JAX's dispatch
 does: the host-clock timers here synchronise the card (when CUDA is in
@@ -38,6 +44,24 @@ import torch
 def _sync() -> None:
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+SPAN_PREFIX = "drn."
+# The main thread waits inside `.backward()` while autograd's own thread
+# launches the backward's kernels: a launch on any thread inside this span
+# is the span's.
+ANY_THREAD_SPANS = ("drn.train.backward",)
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context that records the range `drn.<name>` while a profiler
+    session records, and costs one check otherwise (the shared no-op
+    context: no allocation, no `record_function`)."""
+    if not _profiling():
+        return _NO_SPAN
+    return torch.autograd.profiler.record_function(SPAN_PREFIX + name)
 
 
 @contextlib.contextmanager
@@ -222,3 +246,133 @@ def device_time(fn: Callable[[], Any], calls: int = 3, warmup: int = 1,
         full = [t for t in taken if t["kernels"] == max(agreed)]
     full.sort(key=lambda t: t["kernel_ms"])
     return {**full[len(full) // 2], "traces": counts}
+
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def _innermost(ranges: Iterable[Tuple[float, float, str]]
+              ) -> List[Tuple[float, float, str]]:
+    """Nested (start, end, name) ranges of one thread → the pieces of their
+    union in time order, each with the innermost range open over it."""
+    pieces, stack, t = [], [], 0.0
+    for s, e, name in sorted(ranges, key=lambda r: (r[0], -r[1])):
+        while stack and stack[-1][0] <= s:
+            end, n = stack.pop()
+            pieces.append((t, end, n))
+            t = end
+        if stack:
+            pieces.append((t, s, stack[-1][1]))
+            e = min(e, stack[-1][0])
+        stack.append((e, name))
+        t = s
+    while stack:
+        end, n = stack.pop()
+        pieces.append((t, end, n))
+        t = end
+    return [p for p in pieces if p[1] > p[0]]
+
+
+def _overlap_by_name(intervals: Iterable[Tuple[float, float]],
+                    pieces: List[Tuple[float, float, str]]
+                    ) -> Dict[str, float]:
+    """The time of sorted, disjoint `intervals` under each name of sorted,
+    disjoint `pieces`."""
+    out: Dict[str, float] = defaultdict(float)
+    j = 0
+    for a, b in intervals:
+        while j < len(pieces) and pieces[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(pieces) and pieces[k][0] < b:
+            s, e, n = pieces[k]
+            out[n] += min(b, e) - max(a, s)
+            k += 1
+    return dict(out)
+
+
+def _idle_gaps(busy: Iterable[Tuple[float, float]], start: float,
+              end: float) -> List[Tuple[float, float]]:
+    """The pieces of [start, end] outside every busy interval, in order."""
+    gaps, t = [], start
+    for s, e in sorted(busy):
+        if s > t:
+            gaps.append((t, min(s, end)))
+        t = max(t, e)
+        if t >= end:
+            break
+    if t < end:
+        gaps.append((t, end))
+    return [(a, b) for a, b in gaps if b > a]
+
+
+def span_table(events: List[dict], steps: int) -> Dict[str, Any]:
+    """The program's spans in a chrome trace of `steps` steps (a profiler
+    session that recorded the host and the device), a step each, all from
+    this one trace:
+
+      window_ms   from the first span or device operation to the last
+      busy_ms     the union of kernels, copies and sets in the window
+      spans       name → calls; device_ms, kernels launched inside the
+                  span (its children's included); self_ms, those whose
+                  innermost span it is; idle_ms, the device's idle time
+                  while it was the innermost span open on the main thread
+                  (the one that opened the most spans)
+      outside     the same two of the kernels and idle time under no span
+
+    A launch is a span's when it lies inside it on the span's thread; a
+    launch on a thread with no span open over it (autograd's) is that of
+    the `ANY_THREAD_SPANS` span open over it, on that span's thread."""
+    launch, device = {}, []
+    ranges: Dict[int, List[Tuple[float, float, str]]] = defaultdict(list)
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat"), e.get("args") or {}
+        if cat in _LAUNCH_CATS and "correlation" in args:
+            launch[args["correlation"]] = (e["tid"], e["ts"])
+        elif cat in _DEVICE_CATS:
+            device.append(e)
+        elif cat == "user_annotation" and e["name"].startswith(SPAN_PREFIX):
+            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], e["name"]))
+    if not ranges:
+        raise RuntimeError("the trace holds no span of the program")
+    main = max(ranges, key=lambda tid: len(ranges[tid]))
+    crossing = [(tid, s, e) for tid, v in ranges.items() for s, e, n in v
+                if n in ANY_THREAD_SPANS]
+    rows = defaultdict(lambda: {"calls": 0.0, "device_ms": 0.0,
+                                "self_ms": 0.0, "idle_ms": 0.0})
+    outside = {"self_ms": 0.0, "idle_ms": 0.0}
+    for v in ranges.values():
+        for _, _, n in v:
+            rows[n]["calls"] += 1.0 / steps
+    for k in device:
+        at = launch.get((k.get("args") or {}).get("correlation"))
+        if k["cat"] != "kernel" or at is None:
+            continue
+        tid, ts = at
+        if not any(s <= ts <= e for s, e, _ in ranges.get(tid, ())):
+            tid = next((t for t, s, e in crossing if s <= ts <= e), tid)
+        open_ = [(s, e, n) for s, e, n in ranges.get(tid, ())
+                 if s <= ts <= e]
+        ms = k["dur"] / 1e3 / steps
+        for _, _, n in open_:
+            rows[n]["device_ms"] += ms
+        if open_:
+            rows[max(open_, key=lambda r: (r[0], -r[1]))[2]]["self_ms"] += ms
+        else:
+            outside["self_ms"] += ms
+    busy = [(e["ts"], e["ts"] + e["dur"]) for e in device]
+    start = min([s for s, _ in busy] + [s for s, _, _ in ranges[main]])
+    end = max([e for _, e in busy] + [e for _, e, _ in ranges[main]])
+    gaps = _idle_gaps(busy, start, end)
+    under = _overlap_by_name(gaps, _innermost(ranges[main]))
+    for n, us in under.items():
+        rows[n]["idle_ms"] = us / 1e3 / steps
+    outside["idle_ms"] = (sum(b - a for a, b in gaps)
+                          - sum(under.values())) / 1e3 / steps
+    return {"window_ms": (end - start) / 1e3 / steps,
+            "busy_ms": union_us(busy) / 1e3 / steps,
+            "spans": {n: rows[n] for n in sorted(rows)},
+            "outside": outside}
