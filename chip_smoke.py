@@ -11,15 +11,19 @@ but for `cli`, which runs after `mesh`:
               for sm_90a into the git-ignored build directory.
   2. kernels  each kernel at every distinct shape the flagship eval step
               (charades_c3d_batched_eval, B=48) and train step (B=384:
-              forward, the backward's recomputes, the fusion dx convs)
-              give it, `fused_fusion` also at B=48 (its splits), and the
+              forward, the fusion dx convs, the backward kernels, whose
+              four outputs are held to their plain versions by relative
+              L2 and must see a dropped x̂·mean(gh·x̂) term) give it,
+              `fused_fusion` at a model-axis rank's shape (B=384, half
+              the columns) and at B=48 (its splits), and the
               stem at activitynet_c3d's Cin=500 (B=16, T=256) and at
               synthetic_recipe's Cin=256 -> Cout=128 (B=64, T=64), held
               against its plain PyTorch version on the card (bf16
               tolerance below), and timed with CUDA events over a CUDA
               graph of back-to-back launches: the kernel, its plain
               version, and `F.conv1d` of the same conv as a yardstick (the
-              port never calls it). Every row also carries its grid
+              port never calls it; for a backward kernel with PyTorch's
+              LayerNorm forward and backward kernels after it). Every row also carries its grid
               (`blocks`) and achieved `tflops`; conv_ln_relu's and the
               fusion kernels' also the cluster `split` of its columns.
   3. main     `build_model` + `evaluate()` at the flagship width (D=512,
@@ -60,8 +64,8 @@ but for `cli`, which runs after `mesh`:
               against it. Then `train` in GloVe mode with
               device_features=True at data.batch_size=384 for 2 stage-1
               steps (finite losses, the embedding bit-identical, every
-              other parameter outside the IoU head moved, `fused_fusion`
-              launched), the staged train step's time, and `infer.main` on
+              other parameter outside the IoU head moved, the backward
+              kernels launched), the staged train step's time, and `infer.main` on
               one written video with the eval model's weights (--top
               segments per query inside [0, duration]).
   7. serve    the batched HTTP server (`drn_tpu_torch.serve`) at the
@@ -231,8 +235,8 @@ but for `cli`, which runs after `mesh`:
               (3072, 12288) x (12288, 512): the int32 accumulators equal
               to the same int8 operands multiplied in float64, every row
               within its type's error bound. The four package kernels
-              launched over the runs, `fused_fusion` in stage 1's
-              backward, and no kernel's plain version called
+              launched over the runs, `fused_fusion_block_bwd` in stage
+              1's backward, and no kernel's plain version called
               (`plain_calls`). The line: each gate's numbers, seconds a
               module and a stage, peak device memory.
  16. cli      the repository's recipe scripts as users run them, the two
@@ -251,14 +255,16 @@ but for `cli`, which runs after `mesh`:
               ok`), stage 2 leaves every tensor outside the IoU head
               bit-equal to the stage-1 checkpoint it started from, every
               process launches `fused_stem`, `fused_fusion_block` and
-              `conv_ln_relu`, each stage-1 trainer `fused_fusion` too (a
-              stage-2 backward stops at the IoU head), and none calls a
+              `conv_ln_relu`, each stage-1 trainer `conv_ln_relu_bwd` and
+              `fused_fusion_block_bwd` too (a stage-2 backward stops at
+              the IoU head), and none calls a
               plain version. The line: each script's seconds, metrics and
               processes (stage, seconds, launches).
 
 Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
-launches from the `main` run, `fused_fusion`'s from the `train` run,
+launches from the `main` run, the backward kernels' from the `train` run,
+`fused_fusion`'s from rank 0 of the `mesh` phase's (1, 2, 1) run,
 `pallas_block`'s from the `probe` run), and last {"ok": true, "device":
 {...}}.
 
@@ -290,6 +296,14 @@ PEAK_BYTES_PER_S = 3.35e12
 # by a rounding flip of the output: two bf16 ulps relative (1/64) plus 1/64
 # absolute for values near 0.
 KERNEL_ATOL = KERNEL_RTOL = 1 / 64
+# Backward kernel vs plain version: each of (dpre, dscale, doffset, db) by
+# its relative L2 error, as tests/test_torch_cuda.py's GRAD_REL. Element by
+# element would not do: a ReLU mask decided at the fp32 accumulator flips
+# where the plain version's fp32 conv, summed in another order, sits on the
+# other side of 0. With a cotangent that leans on the output (a regression
+# loss's), dpre without its x̂·mean(gh·x̂) term lies 40-100% from the whole
+# VJP, 20-50 times this bound; each row checks that it does.
+BWD_REL = 2e-2
 # Whole forward, kernels vs plain versions, both in bf16: the flips above
 # pass through ~10 bf16 layers; LayerNorm keeps them at the ulp scale. The
 # outputs compared: match/IoU logits, and segments in base-grid units
@@ -415,11 +429,11 @@ def bound(flops: float, nbytes: float):
 def kernel_phase(cfg, dev):
     """Every kernel at every distinct shape of both main paths: error vs
     its plain version, times, bound. Rows of the eval step (B=48), of the
-    train step (B=384: the forward's launches, the backward's recomputes
-    of the pre-LayerNorm conv with LayerNorm and ReLU off, each fusion
-    level's dx conv), and the stem at activitynet_c3d's Cin=500 and
-    synthetic_recipe's Cout=128 (0 per step: coverage). Returns
-    ({(path, kernel): totals per step}, rows)."""
+    train step (B=384: the forward's launches, each fusion level's dx
+    conv, the backward kernels, the stem's recompute), of a model-axis
+    rank's step (`fused_fusion`, half the columns), and the stem at
+    activitynet_c3d's Cin=500 and synthetic_recipe's Cout=128 (0 per step:
+    coverage). Returns ({(path, kernel): totals per step}, rows)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -472,6 +486,119 @@ def kernel_phase(cfg, dev):
                 plain_ms=cuda_time_ms(plain), library_ms=cuda_time_ms(library),
                 bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
 
+    def without_variance_term(pre, scale, offset, g, use_act):
+        """dpre of the LayerNorm+ReLU VJP at the fp32 rows `pre` with its
+        x̂·mean(gh·x̂) term dropped: rstd·(gh − mean(gh))."""
+        mean = pre.mean(-1, keepdim=True)
+        var = (pre * pre).mean(-1, keepdim=True) - mean * mean
+        rstd = torch.rsqrt(var.clamp_min(0.0) + conv_block.LN_EPS)
+        gh = g.float() * scale
+        if use_act:
+            gh = gh * ((pre - mean) * rstd * scale + offset > 0)
+        return rstd * (gh - gh.mean(-1, keepdim=True))
+
+    def measure_bwd(path, kernel, shape, count, run, plain, library, pre,
+                    use_act, epilogue, g, flops, nbytes):
+        """A backward kernel's (dpre, dscale, doffset, db) against its plain
+        version's within BWD_REL each, and dpre without the variance's term
+        (`pre`: the plain recompute) beyond it; times and bound."""
+        with torch.no_grad():
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            rel = {n: ((a.float() - e.float()).norm()
+                       / e.float().norm().clamp_min(1e-30)).item()
+                   for n, a, e in zip(("dpre", "dscale", "doffset", "db"),
+                                      got, want)}
+            dropped = without_variance_term(pre, *epilogue, g, use_act)
+            dropped_rel = ((dropped - want[0].float()).norm()
+                           / want[0].float().norm()).item()
+            if max(rel.values()) > BWD_REL or dropped_rel <= BWD_REL:
+                raise AssertionError(
+                    f"{kernel} {shape}: relative L2 vs plain {rel}, without "
+                    f"the variance's term {dropped_rel:.4g} (bound "
+                    f"{BWD_REL})")
+            bms, by = bound(flops, nbytes)
+            rows.append(dict(
+                path=path, kernel=kernel, shape=shape, per_step=count,
+                max_abs_err=(got[0].float() - want[0].float()).abs().max()
+                .item(), rel_l2=rel, dropped_term_rel_l2=dropped_rel,
+                ms=cuda_time_ms(run), plain_ms=cuda_time_ms(plain),
+                library_ms=cuda_time_ms(library), bound_ms=bms, bound_by=by,
+                flops=flops, bytes=nbytes))
+
+    def library_bwd(conv, epilogue, g, use_act):
+        """The yardstick of a backward kernel: cuDNN's conv (`conv`, its
+        output (B, Cout, T)) recomputed, PyTorch's LayerNorm forward and
+        backward kernels at fp32, the ReLU's mask and the bias's sum."""
+        scale, offset = epilogue[1:]
+
+        def run():
+            pre = (conv().float().transpose(1, 2) + epilogue[0]).contiguous()
+            y, mean, rstd = torch.ops.aten.native_layer_norm(
+                pre, (pre.shape[-1],), scale, offset, conv_block.LN_EPS)
+            gy = g.float() * (y > 0) if use_act else g.float()
+            dpre, ds, do = torch.ops.aten.native_layer_norm_backward(
+                gy, pre, (pre.shape[-1],), mean, rstd, scale, offset,
+                [True, True, True])
+            return dpre.to(torch.bfloat16), ds, do, dpre.sum((0, 1))
+        return run
+
+    def bwd_rows(path, b, counts):
+        """conv_ln_relu_bwd: one row per distinct shape of a conv block
+        with LayerNorm, with its launches per step, its grid (`blocks`,
+        one a row tile: split 1) and its achieved TFLOP/s."""
+        for (t, cin, k, stride, use_norm, use_act), n in counts.items():
+            x = randn(b, t, cin)
+            w = randn(k, cin, d, scale=1 / math.sqrt(k * cin))
+            epi = epilogue_params(d)
+            t_out, left, _ = conv_block.same_padding(t, k, stride)
+            g = (conv_block.conv_ln_relu(x, w, *epi, stride, True, use_act)
+                 .float() + randn(b, t_out, d, dtype=torch.float32)
+                 ).to(torch.bfloat16)
+            pre = conv_block.conv_taps(x, w, t_out, left, stride) + epi[0]
+            args = (x, w, *epi, g, stride, use_act)
+            flops = 2 * b * t_out * k * cin * d
+            tiles = -(-b * t_out // conv_block.TILE_ROWS)
+            measure_bwd(path, "conv_ln_relu_bwd",
+                        dict(B=b, T=t, Cin=cin, Cout=d, K=k, stride=stride,
+                             use_act=use_act), n,
+                        lambda: conv_block.conv_ln_relu_bwd(*args),
+                        lambda: conv_block.conv_ln_relu_bwd_reference(*args),
+                        library_bwd(library_conv(x, w, k, stride), epi, g,
+                                    use_act),
+                        pre, use_act, epi[1:], g, flops,
+                        2 * (x.numel() + w.numel() + 2 * g.numel())
+                        + 4 * 2 * tiles * 3 * d + 24 * d)
+            rows[-1].update(blocks=tiles, split=1,
+                            tflops=flops / rows[-1]["ms"] / 1e9)
+
+    def fusion_bwd_rows(path, b, count=1):
+        """fused_fusion_block_bwd: one launch per pyramid level."""
+        for t in level_ts:
+            v, q = randn(b, t, d), randn(b, d, scale=0.5)
+            w = randn(kf, d, d, scale=1 / math.sqrt(kf * d))
+            epi = epilogue_params(d)
+            g = (fused_fusion.fused_fusion_block(v, q, w, *epi).float()
+                 + randn(b, t, d, dtype=torch.float32)).to(torch.bfloat16)
+            vq = (v * q[:, None, :]).contiguous()
+            left = conv_block.same_padding(t, kf, 1)[1]
+            pre = conv_block.conv_taps(vq, w, t, left, 1) + epi[0]
+            args = (v, q, w, *epi, g)
+            flops = 2 * b * t * kf * d * d
+            tiles = -(-b * t // conv_block.TILE_ROWS)
+            measure_bwd(path, "fused_fusion_block_bwd",
+                        dict(B=b, T=t, D=d, K=kf), count,
+                        lambda: fused_fusion.fused_fusion_block_bwd(*args),
+                        lambda: fused_fusion.fused_fusion_block_bwd_reference(
+                            *args),
+                        library_bwd(library_conv(vq, w, kf, 1), epi, g, True),
+                        pre, True, epi[1:], g, flops,
+                        2 * (v.numel() + q.numel() + w.numel()
+                             + 2 * g.numel()) + 4 * 2 * tiles * 3 * d
+                        + 24 * d)
+            rows[-1].update(blocks=tiles, split=1,
+                            tflops=flops / rows[-1]["ms"] / 1e9)
+
     def conv_rows(path, b, counts):
         """conv_ln_relu: one row per distinct shape, with its launches per
         step, its grid (`blocks`), the cluster split of its columns and its
@@ -495,25 +622,26 @@ def kernel_phase(cfg, dev):
             rows[-1].update(blocks=plan.grid, split=plan.split,
                             tflops=flops / rows[-1]["ms"] / 1e9)
 
-    def fusion_rows(path, b, epilogue, count=1):
+    def fusion_rows(path, b, epilogue, count=1, dout=d):
         """fused_fusion_block (epilogue) or fused_fusion: one launch per
         pyramid level (`count` a step), with the grid (`blocks`), the
         cluster split of its columns and the achieved TFLOP/s (conv_plan,
-        as conv_ln_relu)."""
+        as conv_ln_relu). `dout`: a model-axis rank's share of the
+        columns."""
         for t in level_ts:
             v, q = randn(b, t, d), randn(b, d, scale=0.5)
-            w = randn(kf, d, d, scale=1 / math.sqrt(kf * d))
-            args = (v, q, w, *epilogue_params(d)[:3 if epilogue else 1])
+            w = randn(kf, d, dout, scale=1 / math.sqrt(kf * d))
+            args = (v, q, w, *epilogue_params(dout)[:3 if epilogue else 1])
             name = "fused_fusion_block" if epilogue else "fused_fusion"
             vq = (v * q[:, None, :]).contiguous()
-            flops = 2 * b * t * kf * d * d
-            measure(path, name, dict(B=b, T=t, D=d, K=kf), count,
+            flops = 2 * b * t * kf * d * dout
+            measure(path, name, dict(B=b, T=t, D=d, Dout=dout, K=kf), count,
                     lambda: getattr(fused_fusion, name)(*args),
                     lambda: getattr(fused_fusion, name + "_reference")(*args),
                     library_conv(vq, w, kf, 1), flops,
-                    2 * (2 * v.numel() + q.numel() + w.numel())
-                    + (12 if epilogue else 4) * d)
-            plan = conv_block.conv_plan(b * t, d, sms)
+                    2 * (v.numel() + q.numel() + w.numel() + b * t * dout)
+                    + (12 if epilogue else 4) * dout)
+            plan = conv_block.conv_plan(b * t, dout, sms)
             rows[-1].update(blocks=plan.grid, split=plan.split,
                             tflops=flops / rows[-1]["ms"] / 1e9)
 
@@ -547,20 +675,24 @@ def kernel_phase(cfg, dev):
     fusion_rows("eval", b, True)
     stem_row("eval", b, t0, fdim, 1)
 
-    # The train step: the forward's launches, the backward's recompute of
-    # each block (LayerNorm and ReLU off), each fusion level's dx conv.
-    recompute = [(t, cin, k, st, False, False) for t, cin, k, st, _, _ in fwd]
+    # The train step: the forward's launches, each fusion level's dx conv,
+    # the backward kernels (each conv block's and each fusion level's
+    # recompute and LayerNorm+ReLU VJP), the stem's recompute.
     dx = [(t, d, kf, 1, False, False) for t in level_ts]
-    conv_rows("train", TRAIN_BATCH, Counter(fwd + recompute + dx))
+    conv_rows("train", TRAIN_BATCH, Counter(fwd + dx))
+    bwd_rows("train", TRAIN_BATCH, Counter(s for s in fwd if s[4]))
     fusion_rows("train", TRAIN_BATCH, True)
-    fusion_rows("train", TRAIN_BATCH, False)
+    fusion_bwd_rows("train", TRAIN_BATCH)
     stem_row("train", TRAIN_BATCH, t0, fdim, 1)
     stem_row("train", TRAIN_BATCH, t0, fdim, 1, use_norm=False)
+    # `fused_fusion` where it runs: a model-axis rank's forward of a
+    # fusion level, half the columns (the mesh phase's (1, 2, 1) layout at
+    # the train batch), one call a level a step.
+    fusion_rows("mesh", TRAIN_BATCH, False, dout=d // 2)
 
-    # fused_fusion at the eval batch's splits (it runs in the train step
-    # alone); activitynet_c3d's 500 features: a ragged last k-tile of
-    # channels; synthetic_recipe's stem, Cin=256 -> Cout=128, at its eval
-    # batch.
+    # fused_fusion at the eval batch's splits, all columns; activitynet_c3d's
+    # 500 features: a ragged last k-tile of channels; synthetic_recipe's
+    # stem, Cin=256 -> Cout=128, at its eval batch.
     fusion_rows("coverage", b, False, 0)
     stem_row("coverage", 16, 256, 500, 0, config="activitynet_c3d")
     stem_row("coverage", 64, 64, 256, 0, cout=128, config="synthetic_recipe")
@@ -581,18 +713,20 @@ def eval_launches_per_step(m):
     towers and the IoU head's mixes."""
     return {"fused_stem": 1, "fused_fusion_block": m.num_levels,
             "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
-            + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0}
+            + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0,
+            "conv_ln_relu_bwd": 0, "fused_fusion_block_bwd": 0}
 
 
 def train_launches_per_step(m):
     """Forward 1 / L / (3L + 2·towers + IoU mixes); the backward recomputes
-    every pre-LayerNorm conv with the kernels (stem, `fused_fusion` for
-    each fusion level, each conv block) and runs each fusion level's dx
-    conv through `conv_ln_relu`."""
+    the stem with its kernel, takes each conv block's and each fusion
+    level's LayerNorm+ReLU VJP in its backward kernel, and runs each
+    fusion level's dx conv through `conv_ln_relu`."""
     blocks = 3 * m.num_levels + 2 * m.head_tower_layers + m.iou_head_layers
     return {"fused_stem": 2, "fused_fusion_block": m.num_levels,
-            "conv_ln_relu": 2 * blocks + m.num_levels,
-            "fused_fusion": m.num_levels, "pallas_block": 0}
+            "conv_ln_relu": blocks + m.num_levels, "fused_fusion": 0,
+            "pallas_block": 0, "conv_ln_relu_bwd": blocks,
+            "fused_fusion_block_bwd": m.num_levels}
 
 
 def main_path_phase(cfg, dev):
@@ -1261,7 +1395,7 @@ finally:
           flush=True)
 """
 PACKAGE_KERNELS = ("fused_stem", "fused_fusion_block", "conv_ln_relu",
-                   "fused_fusion")
+                   "conv_ln_relu_bwd", "fused_fusion_block_bwd")
 
 
 def _train_child(args, sigterm_after=None, launcher=None):
@@ -1865,8 +1999,12 @@ def mesh_phase():
             for r in range(nprocs):
                 with open(os.path.join(d, f"rank{r}.json")) as f:
                     ranks.append(json.load(f))
-            runs_on = ("conv_ln_relu", "fused_stem", "fused_fusion") + (
-                ("fused_fusion_block",) if layout[1] == 1 else ())
+            # The model axis runs the blocks' split epilogue (LayerNorm
+            # outside the kernels), so its backward keeps the recompute.
+            runs_on = ("conv_ln_relu", "fused_stem") + (
+                ("fused_fusion_block", "fused_fusion_block_bwd",
+                 "conv_ln_relu_bwd") if layout[1] == 1 else
+                ("fused_fusion",))
             for r in ranks:
                 if r["plain"] or not all(r["launches"].get(k)
                                          for k in runs_on):
@@ -2493,8 +2631,9 @@ def recipe_phase():
     fail_on("int8_probe", int8_probe.gate_failures(int8_rows))
     fail_on("launches", {k: total[k] for k in PACKAGE_KERNELS
                          if not total[k] > 0})
-    fail_on("fused_fusion in stage 1's backward", [] if demo_run[
-        "launches"]["stage1_train"]["fused_fusion"] > 0 else demo_run)
+    fail_on("fused_fusion_block_bwd in stage 1's backward", [] if demo_run[
+        "launches"]["stage1_train"]["fused_fusion_block_bwd"] > 0
+        else demo_run)
     fail_on("plain versions called", dict(plain))
 
     results = demo_run["results"]
@@ -2588,8 +2727,8 @@ METRIC_LINE = re.compile(r"^(R@\d,IoU=[\d.]+|mIoU): -?[\d.]+$", re.M)
 def _cli_gates(name, out, records, ckpt_root, config):
     """The gates of one script's run → its summary: rc 0 for every
     process, 7 metric lines, stage 2's freeze bit-equal, the package
-    kernels launched by every process (`fused_fusion`, backward only, by
-    stage 1's train) and no plain version called."""
+    kernels launched by every process (the backward kernels by stage 1's
+    train) and no plain version called."""
     import torch
 
     from drn_tpu_torch.config import get_config
@@ -2605,7 +2744,8 @@ def _cli_gates(name, out, records, ckpt_root, config):
         raise AssertionError(f"{name}: processes {records}")
     for r, stage in zip(records, stages):
         want = ("fused_stem", "fused_fusion_block", "conv_ln_relu") + (
-            ("fused_fusion",) if stage == "1" else ())
+            ("conv_ln_relu_bwd", "fused_fusion_block_bwd")
+            if stage == "1" else ())
         if r["rc"] or r["plain"] or not all(r["launches"][k] for k in want):
             raise AssertionError(f"{name} stage {stage}: {r}")
     metrics = dict(m.group(0).split(": ") for m in METRIC_LINE.finditer(out))
@@ -2759,16 +2899,21 @@ def main() -> int:
     ck_line = checkpoint_phase(dev)
     emit(ck_line)
     emit(ddp_phase(ck_line))
-    emit(mesh_phase())
+    mesh_line = mesh_phase()
+    emit(mesh_line)
     emit(cli_phase())
     emit(bench_phase(main_line))
     emit(probes_phase())
     emit(module_probes_phase())
     emit(recipe_phase_in_child())
     # Each kernel's launches on its main path: the eval step's kernels in
-    # the `main` run, `fused_fusion` (backward only) in the `train` run,
-    # `pallas_block` in the `probe` run.
-    launches["fused_fusion"] = train_launches["fused_fusion"]
+    # the `main` run, the backward kernels in the `train` run,
+    # `fused_fusion` in rank 0 of the model-axis run (1, 2, 1), whose
+    # forward alone runs it, `pallas_block` in the `probe` run.
+    for name in ("conv_ln_relu_bwd", "fused_fusion_block_bwd"):
+        launches[name] = train_launches[name]
+    launches["fused_fusion"] = mesh_line["runs"][
+        "flagship_" + _mesh_tag((1, 2, 1))]["launches"][0]["fused_fusion"]
     launches["pallas_block"] = probe_launches["pallas_block"]
 
     print(card(), flush=True)
@@ -2788,6 +2933,12 @@ def main() -> int:
         "fused_fusion": ("drn_tpu_torch/ops/cuda/csrc/fused_fusion.cu",
                          "conv_sm90.cuh",
                          "drn_tpu/ops/pallas/fused_fusion.py:61"),
+        "conv_ln_relu_bwd": ("drn_tpu_torch/ops/cuda/csrc/conv_block.cu",
+                             "conv_sm90.cuh",
+                             "drn_tpu/ops/pallas/conv_block.py:165"),
+        "fused_fusion_block_bwd": (
+            "drn_tpu_torch/ops/cuda/csrc/fused_fusion.cu", "conv_sm90.cuh",
+            "drn_tpu/ops/pallas/fused_fusion.py:200"),
         "pallas_block": ("drn_tpu_torch/ops/cuda/csrc/block_probe.cu",
                          "conv_sm90.cuh", "scripts/pallas_block_probe.py:52"),
     }
@@ -2798,9 +2949,10 @@ def main() -> int:
                                       "library_ms")},
         **{"bound_" + probe_line["bound_by"]: probe_line["bound_ms"]})
     # Per eval step for the eval path's kernels (their first slice), per
-    # train step for `fused_fusion`, which runs only there, per call at the
-    # probe's shape for `pallas_block`.
-    path = {"fused_fusion": "train", "pallas_block": "probe"}
+    # train step for the backward kernels, per step of a model-axis rank
+    # for `fused_fusion`, per call at the probe's shape for `pallas_block`.
+    path = {"fused_fusion": "mesh", "pallas_block": "probe",
+            "conv_ln_relu_bwd": "train", "fused_fusion_block_bwd": "train"}
     kernels = []
     for name, (source, header, replaces) in where.items():
         tot = totals[path.get(name, "eval"), name]

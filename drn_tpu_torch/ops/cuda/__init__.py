@@ -7,8 +7,11 @@ path went through the kernels. Their gradients are in `autograd.py`.
 The four package kernels launch through `torch.library` custom ops
 (`torch.ops.drn_tpu_torch.conv_ln_relu`, `.fused_fusion_block`,
 `.fused_fusion`, `.fused_stem`; CUDA only, each with a fake function that
-gives its output's shape), so `torch.export` keeps each launch as one
-opaque node (export.py); importing this package registers them. The
+gives its output's shape), and so do the backward epilogues of the first
+two (`.conv_ln_relu_bwd`, `.fused_fusion_block_bwd`: the conv kernel's
+backward mode, which `autograd.py` launches), so `torch.export` keeps
+each launch as one opaque node (export.py); importing this package
+registers them. The
 checks, the launch plan, the count and the FLOPs run in the op's body,
 when it runs. (`fused_fusion`, the wrapper, is reached through its module
 of the same name: `drn_tpu_torch.ops.cuda.fused_fusion.fused_fusion`.)
@@ -25,12 +28,13 @@ from drn_tpu_torch.ops.cuda import fused_fusion as _fusion
 from drn_tpu_torch.ops.cuda.block_probe import (pallas_block,
                                                 pallas_block_reference,
                                                 xla_block)
-from drn_tpu_torch.ops.cuda.conv_block import conv_ln_relu
-from drn_tpu_torch.ops.cuda.fused_fusion import fused_fusion_block
+from drn_tpu_torch.ops.cuda.conv_block import conv_ln_relu, conv_ln_relu_bwd
+from drn_tpu_torch.ops.cuda.fused_fusion import (fused_fusion_block,
+                                                 fused_fusion_block_bwd)
 from drn_tpu_torch.ops.cuda.stem import fused_stem
 
 KERNELS = (fused_stem, fused_fusion_block, conv_ln_relu, _fusion.fused_fusion,
-           pallas_block)
+           pallas_block, conv_ln_relu_bwd, fused_fusion_block_bwd)
 
 
 def launch_counts() -> Dict[str, int]:

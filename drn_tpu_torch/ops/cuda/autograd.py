@@ -4,10 +4,15 @@ recompute backward of the JAX package's custom VJPs.
 Each forward launches its kernel (through the wrapper: the plain version on
 a CPU tensor) and saves its inputs only; nothing of (B, T, C) size is kept
 between forward and backward, the contract of the JAX custom VJPs. Each
-backward recomputes the pre-LayerNorm conv with the kernel (LayerNorm and
-ReLU off), takes the fp32 LayerNorm+ReLU VJP, casts the cotangent to the
-compute dtype (the transpose of the forward's cast to fp32), then takes the
-conv's VJP:
+backward recomputes the pre-LayerNorm conv with a kernel and takes the
+fp32 LayerNorm+ReLU VJP, casts the cotangent to the compute dtype (the
+transpose of the forward's cast to fp32), then takes the conv's VJP. Where
+LayerNorm is on, the conv block and the fusion block do the first two in
+one launch, their kernel's backward epilogue (`conv_ln_relu_bwd`,
+`fused_fusion_block_bwd`: the VJP in closed form at the fp32 accumulator,
+and dscale, doffset, db); the stem recomputes with its kernel and takes
+the VJP in PyTorch (`epilogue_vjp`), as the conv block does without
+LayerNorm:
 
   ConvLnReluFn      drn_tpu/ops/pallas/conv_block.py  `_bwd`: the conv VJP
                     as matrix products (the JAX package leaves it to XLA);
@@ -15,9 +20,8 @@ conv's VJP:
   FusedStemFn       drn_tpu/ops/pallas/stem.py `_bwd`: as ConvLnReluFn on the
                     normalised input, then the input LayerNorm's VJP.
   FusedFusionBlockFn  drn_tpu/ops/pallas/fused_fusion.py `_block_bwd`: the
-                    pre-epilogue conv is exactly `fused_fusion`, so it is
-                    recomputed by that kernel and its VJP is
-                    `fused_fusion_backward` (the JAX package's `_bwd`).
+                    pre-epilogue conv is exactly `fused_fusion`, whose VJP
+                    is `fused_fusion_backward` (the JAX package's `_bwd`).
   FusedFusionFn     drn_tpu/ops/pallas/fused_fusion.py `_bwd`.
 
 The backward code is the same on every device: on a CPU tensor the
@@ -31,11 +35,13 @@ from typing import Tuple
 
 import torch
 
-from drn_tpu_torch.ops.cuda.conv_block import (conv_ln_relu, conv_vjp,
+from drn_tpu_torch.ops.cuda.conv_block import (conv_ln_relu,
+                                               conv_ln_relu_bwd, conv_vjp,
                                                layer_norm)
 from drn_tpu_torch.ops.cuda.fused_fusion import (fused_fusion,
                                                  fused_fusion_backward,
-                                                 fused_fusion_block)
+                                                 fused_fusion_block,
+                                                 fused_fusion_block_bwd)
 from drn_tpu_torch.ops.cuda.stem import fused_stem
 
 
@@ -79,11 +85,17 @@ class ConvLnReluFn(torch.autograd.Function):
         x, w, b, scale, offset = ctx.saved_tensors
         stride, use_norm, use_act = ctx.conf
         need = ctx.needs_input_grad
-        ones, zeros = _identity_epilogue(w.shape[2], x.device)
-        pre = conv_ln_relu(x, w, b, ones, zeros, stride, False, False)
-        dpre, ds, do = epilogue_vjp(pre, scale, offset, g, use_norm, use_act)
+        if use_norm:
+            dpre, ds, do, db = conv_ln_relu_bwd(x, w, b, scale, offset,
+                                                g.contiguous(), stride,
+                                                use_act)
+        else:
+            ones, zeros = _identity_epilogue(w.shape[2], x.device)
+            pre = conv_ln_relu(x, w, b, ones, zeros, stride, False, False)
+            dpre, ds, do = epilogue_vjp(pre, scale, offset, g, False, use_act)
+            db = dpre.float().sum((0, 1))
         dx, dw = conv_vjp(dpre, x, w, stride, need[0], need[1])
-        db = dpre.float().sum((0, 1)).to(b.dtype) if need[2] else None
+        db = db.to(b.dtype) if need[2] else None
         return dx, dw, db, ds, do, None, None, None
 
 
@@ -136,9 +148,9 @@ class FusedFusionBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         v, q, w, b, scale, offset = ctx.saved_tensors
-        pre = fused_fusion(v, q, w, b)
-        dpre, ds, do = epilogue_vjp(pre, scale, offset, g, True, True)
-        dv, dq, dw, db = fused_fusion_backward(dpre, v, q, w)
+        dpre, ds, do, db = fused_fusion_block_bwd(v, q, w, b, scale, offset,
+                                                  g.contiguous())
+        dv, dq, dw, _ = fused_fusion_backward(dpre, v, q, w, need_db=False)
         return dv, dq, dw, db.to(b.dtype), ds, do
 
 

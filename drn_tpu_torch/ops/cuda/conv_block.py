@@ -22,7 +22,14 @@ accumulator (the TPU kernel does the same; the JAX package's XLA path
 rounds the conv output to bf16 before its bf16 bias add, which the bf16
 tolerances of the tests absorb). The wrapper is forward only and refuses
 an input that needs a gradient; the model reaches it through
-`ops/cuda/autograd.py`, whose backward recomputes through it.
+`ops/cuda/autograd.py`.
+
+`conv_ln_relu_bwd` is the block's backward where LayerNorm is on: the same
+kernel with its backward epilogue (custom op
+`torch.ops.drn_tpu_torch.conv_ln_relu_bwd`) recomputes the conv and takes
+the LayerNorm+ReLU VJP (`ln_relu_vjp`, in closed form) at the fp32
+accumulator: (dpre, dscale, doffset, db). `conv_ln_relu_bwd_reference` is
+its plain version, with the same arithmetic.
 
 The helpers below (`same_padding`, `layer_norm`, `conv_taps`,
 `check_cuda_inputs`, `refuse_grad`, `check_cout`, `stream_of`, and
@@ -165,6 +172,43 @@ def conv_ln_relu_reference(x, w, b, scale, offset, stride: int = 1,
     return acc.to(x.dtype)
 
 
+def ln_relu_vjp(pre: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+                g: torch.Tensor, use_act: bool, eps: float = LN_EPS):
+    """The VJP of relu?(layer_norm(pre, scale, offset)) at the fp32 rows
+    `pre` (…, C) for the cotangent g, in closed form: (dpre fp32, dscale,
+    doffset, db = dpre summed over the rows). With x̂ = (pre − mean)·rstd
+    and gh = g·[y > 0 where use_act]·scale (y the forward's output before
+    the ReLU, computed as `layer_norm` computes it),
+    dpre = rstd·(gh − mean(gh) − x̂·mean(gh·x̂)), rounded as the kernel
+    rounds it, rstd·gh − rstd·(mean(gh) + x̂·mean(gh·x̂)); the x̂ term is off
+    where the fast variance clamps at 0 (its gradient through clamp_min)."""
+    mean = pre.mean(-1, keepdim=True)
+    var = (pre * pre).mean(-1, keepdim=True) - mean * mean
+    rstd = torch.rsqrt(var.clamp_min(0.0) + eps)
+    scale, offset = scale.float(), offset.float()
+    d = pre - mean
+    xhat = d * rstd
+    g = g.float()
+    if use_act:
+        g = g * (d * (rstd * scale) + offset > 0)
+    gh = g * scale
+    mgx = (gh * xhat).mean(-1, keepdim=True) * (var >= 0)
+    dpre = rstd * gh - rstd * (gh.mean(-1, keepdim=True) + xhat * mgx)
+    rows = tuple(range(pre.dim() - 1))
+    return dpre, (g * xhat).sum(rows), g.sum(rows), dpre.sum(rows)
+
+
+def conv_ln_relu_bwd_reference(x, w, b, scale, offset, g, stride: int = 1,
+                               use_act: bool = True):
+    """Plain version of the backward kernel: the conv + b recomputed in
+    fp32 (no rounding), then `ln_relu_vjp` for the output's cotangent g:
+    (dpre in x.dtype, dscale, doffset, db in fp32)."""
+    out_t, left, _ = same_padding(x.shape[1], w.shape[0], stride)
+    pre = conv_taps(x, w, out_t, left, stride) + b.float()
+    dpre, ds, do, db = ln_relu_vjp(pre, scale, offset, g, use_act)
+    return dpre.to(x.dtype), ds, do, db
+
+
 def conv_vjp(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, stride: int,
              need_dx: bool = True, need_dw: bool = True
              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -211,6 +255,26 @@ def conv_ln_relu(x, w, b, scale, offset, stride: int = 1,
 conv_ln_relu.launches = 0
 
 
+def _check_conv(name, x, w, b, scale, offset, stride, **more):
+    """Raise unless the kernel takes these inputs (and each `more`, a
+    name → (tensor, dtype, shape)); → (B, T, Cin, Cout, K, T_out, left)."""
+    bsz, t, cin = x.shape
+    k, _, cout = w.shape
+    check_cout(name, cout)
+    if stride < 1 or k < 1:
+        raise ValueError(f"{name}: stride={stride}, K={k}")
+    check_cuda_inputs(
+        name,
+        x=(x, torch.bfloat16, (None, None, cin)),
+        w=(w, torch.bfloat16, (k, cin, cout)),
+        b=(b, torch.float32, (cout,)),
+        scale=(scale, torch.float32, (cout,)),
+        offset=(offset, torch.float32, (cout,)),
+        **more,
+    )
+    return (bsz, t, cin, cout, k, *same_padding(t, k, stride)[:2])
+
+
 @torch.library.custom_op("drn_tpu_torch::conv_ln_relu", mutates_args=(),
                          device_types="cuda")
 def conv_ln_relu_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -218,20 +282,8 @@ def conv_ln_relu_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     use_norm: bool, use_act: bool) -> torch.Tensor:
     """The kernel's launch: checks, `conv_plan`, the launch, its count and
     its FLOPs, all when the op runs (an exported graph holds the op)."""
-    bsz, t, cin = x.shape
-    k, _, cout = w.shape
-    check_cout("conv_ln_relu", cout)
-    if stride < 1 or k < 1:
-        raise ValueError(f"conv_ln_relu: stride={stride}, K={k}")
-    check_cuda_inputs(
-        "conv_ln_relu",
-        x=(x, torch.bfloat16, (None, None, cin)),
-        w=(w, torch.bfloat16, (k, cin, cout)),
-        b=(b, torch.float32, (cout,)),
-        scale=(scale, torch.float32, (cout,)),
-        offset=(offset, torch.float32, (cout,)),
-    )
-    out_t, left, _ = same_padding(t, k, stride)
+    bsz, t, cin, cout, k, out_t, left = _check_conv(
+        "conv_ln_relu", x, w, b, scale, offset, stride)
     plan = conv_plan(bsz * out_t, cout, torch.cuda.get_device_properties(
         x.device).multi_processor_count)
     out = torch.empty((bsz, out_t, cout), dtype=torch.bfloat16,
@@ -251,3 +303,69 @@ def conv_ln_relu_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _(x, w, b, scale, offset, stride, use_norm, use_act):
     out_t = same_padding(x.shape[1], w.shape[0], stride)[0]
     return x.new_empty((x.shape[0], out_t, w.shape[2]), dtype=torch.bfloat16)
+
+
+def conv_ln_relu_bwd(x, w, b, scale, offset, g, stride: int = 1,
+                     use_act: bool = True):
+    """The backward of conv_ln_relu with LayerNorm on, for its output's
+    cotangent g (B, T_out, Cout): (dpre (B, T_out, Cout) in x.dtype, the
+    VJP at the recomputed fp32 conv + b; dscale, doffset, db (Cout,) fp32).
+    On CUDA: the inputs as `conv_ln_relu` takes them, g bf16; the launch is
+    the custom op `torch.ops.drn_tpu_torch.conv_ln_relu_bwd`."""
+    if x.device.type == "cpu":
+        return conv_ln_relu_bwd_reference(x, w, b, scale, offset, g, stride,
+                                          use_act)
+    refuse_grad("conv_ln_relu_bwd", x=x, w=w, b=b, scale=scale,
+                offset=offset, g=g)
+    return conv_ln_relu_bwd_op(x, w, b, scale, offset, g, stride, use_act)
+
+
+conv_ln_relu_bwd.launches = 0
+
+
+def bwd_outputs(g: torch.Tensor):
+    """The backward kernels' outputs for the cotangent g (B, T, Cout):
+    dpre like g; the tiles' column partials (tiles, 3, Cout), dscale,
+    doffset, db (Cout,) fp32. tiles = ceil(B·T / TILE_ROWS): one block a
+    row tile, the grid."""
+    bsz, t, cout = g.shape
+    f32 = dict(dtype=torch.float32, device=g.device)
+    return (torch.empty_like(g), torch.empty((-(-bsz * t // TILE_ROWS), 3,
+                                              cout), **f32),
+            *(torch.empty(cout, **f32) for _ in range(3)))
+
+
+@torch.library.custom_op("drn_tpu_torch::conv_ln_relu_bwd", mutates_args=(),
+                         device_types="cuda")
+def conv_ln_relu_bwd_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        scale: torch.Tensor, offset: torch.Tensor,
+                        g: torch.Tensor, stride: int, use_act: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """The backward kernel's launch (one block a row tile) and the tiles'
+    column sums, its count and its FLOPs (the recompute's conv, as the
+    forward launch counts it)."""
+    bsz, t, cin, cout, k, out_t, left = _check_conv(
+        "conv_ln_relu_bwd", x, w, b, scale, offset, stride,
+        g=(g, torch.bfloat16, (x.shape[0], None, w.shape[2])))
+    if g.shape[1] != out_t:
+        raise ValueError(f"conv_ln_relu_bwd: g has {g.shape[1]} rows a "
+                         f"video, expected {out_t}")
+    dpre, part, ds, do, db = bwd_outputs(g)
+    fn = _build.entry("conv_block", "drn_conv_ln_relu_bwd", 11, 10)
+    rc = fn(*(a.data_ptr() for a in (x, w, b, scale, offset, g, dpre, part,
+                                     ds, do, db)),
+            bsz, t, cin, cout, k, stride, out_t, left, int(use_act),
+            part.shape[0], stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"conv_ln_relu_bwd: CUDA error {rc} at launch")
+    conv_ln_relu_bwd.launches += 1
+    flops.add_conv(bsz, out_t, cin, cout, k)
+    return dpre, ds, do, db
+
+
+@conv_ln_relu_bwd_op.register_fake
+def _(x, w, b, scale, offset, g, stride, use_act):
+    cout = w.shape[2]
+    return (torch.empty_like(g, dtype=torch.bfloat16),
+            *(g.new_empty(cout, dtype=torch.float32) for _ in range(3)))

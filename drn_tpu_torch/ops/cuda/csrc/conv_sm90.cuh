@@ -67,8 +67,27 @@
 // variance clamped at 0, eps 1e-6 unless the caller sets another), *
 // scale + offset, ReLU; the bf16 tile is staged in the (by then idle) ring
 // and stored 16 bytes a thread, each warp writing whole rows. Each of
-// use_norm / use_act can be off (the backward's recompute, the fusion
-// backward's dx conv, the FPN laterals).
+// use_norm / use_act can be off (the fusion backward's dx conv, the FPN
+// laterals, the split epilogue of the model axis).
+//
+// The backward epilogue (BWD, a kernel of its own; one block a row tile,
+// never a cluster, so a row's sums stay in the block): the same conv + bias
+// in the accumulators, the same mean and rstd, then the VJP of relu?(LN(.))
+// for the output cotangent g (M, Cout) bf16, which is copied into the ring
+// by cp.async while the row statistics are formed. With x^ = (acc - mean) *
+// rstd, y the forward's pre-ReLU output and gh = g * [y > 0 where use_act] *
+// scale, two more row sums (sum gh, sum gh * x^: 4 lanes, then the two
+// warpgroups through xchg) give
+//   dpre = rstd * (gh - mean(gh) - x^ * mean(gh * x^)),
+// rounded as rstd * gh - rstd * (mean(gh) + x^ * mean(gh * x^)), the order
+// the plain version keeps (ops/cuda/conv_block.py::ln_relu_vjp); the x^
+// term is off where the fast variance clamps, as autograd's clamp_min
+// gives it. dpre is written once in bf16 through the ring. Each tile's
+// column sums of g * mask * x^ (dscale), g * mask (doffset) and the fp32
+// dpre (db) go to partials (tiles, 3, Cout): each thread adds its two rows,
+// stores them in the ring by row group, and one thread a column adds the 32
+// groups in order; `column_sums_kernel` then adds the tiles in order. No
+// atomics: the sums are the same from run to run.
 #pragma once
 
 #include "sm90.cuh"
@@ -136,10 +155,12 @@ struct ConvArgs {
   const __nv_bfloat16* bias_bf16;  // (Cout), read instead where BF16_BIAS
   const float* scale;            // (Cout)
   const float* offset;           // (Cout)
-  __nv_bfloat16* out;            // (M, Cout)
+  __nv_bfloat16* out;            // (M, Cout): dpre where BWD
   int M, T, T_out, Cin, K, stride, left, use_norm, use_act;
   int nkc;                       // ceil(Cin / kBK): k-tiles per tap
   float eps = kLnEps;            // LayerNorm epsilon; `ConvArgs a{}` keeps it
+  const __nv_bfloat16* g;        // (M, Cout), read where BWD alone
+  float* partials;               // (tiles, 3, Cout), written where BWD alone
 };
 
 // 16 bytes global -> shared, asynchronously; `bytes` = 0 zero-fills them.
@@ -188,6 +209,214 @@ __device__ __forceinline__ uint4 hadamard(uint4 v, uint4 q) {
   return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
+// Row groups of the backward's column sums: a warp of a consumer warpgroup
+// holds 8 groups of two rows (r0 and r0 + 8), so 32 over the tile, each one
+// row of kCout + 8 floats (the 8 spread a warp's stores over the banks).
+constexpr int kGroups = 32;
+template <int kCout>
+__host__ __device__ constexpr int bwd_epilogue_bytes() {
+  return kBM * kCout * 2 + 2 * kGroups * (kCout + 8) * 4;
+}
+
+// The backward epilogue (BWD), after the forward's bias add and row sums
+// have been exchanged (xchg slots 0 and 1): acc holds conv + bias of rows
+// r0 (e < 2) and r0 + 8 (e >= 2), columns col0 + 8 n8 + (e & 1). The ring
+// (at `ring`, `ring_ptr` in the generic space) is free. Writes dpre (bf16)
+// to a.out and this tile's three column sums to a.partials.
+template <int kCout>
+__device__ __forceinline__ void ln_relu_vjp(float (&acc)[kCout / 4],
+                                            float2* xchg, uint32_t ring,
+                                            unsigned char* ring_ptr,
+                                            const ConvArgs& a, int m0, int ct,
+                                            int wg, int lane, int r0,
+                                            int col0) {
+  constexpr int kN = kCout / 2;  // columns of each consumer warpgroup
+  constexpr int kPitch = kCout * 2;
+  constexpr int kChunks = kCout / 8;
+  constexpr int kColPitch = kCout + 8;
+  float* cols = reinterpret_cast<float*>(ring_ptr + kBM * kPitch);
+  auto consumers_sync = [] {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(2 * 128) : "memory");
+  };
+  // g's tile into the ring, laid out as the output tile (zeros past M).
+  for (int i = ct; i < kBM * kChunks; i += 256) {
+    const int r = i / kChunks, j = i % kChunks, gm = m0 + r;
+    cp_async_16(ring + r * kPitch + ((j ^ (r & 7)) << 4),
+                gm < a.M ? a.g + static_cast<size_t>(gm) * kCout + 8 * j
+                         : a.g,
+                gm < a.M ? 16u : 0u);
+  }
+  cp_async_commit();
+  float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const float2 v0 = xchg[p * kBM + r0], v1 = xchg[p * kBM + r0 + 8];
+    s0 += v0.x;
+    q0 += v0.y;
+    s1 += v1.x;
+    q1 += v1.y;
+  }
+  const float inv_n = 1.0f / kCout;
+  const float mean[2] = {s0 * inv_n, s1 * inv_n};
+  const float var[2] = {q0 * inv_n - mean[0] * mean[0],
+                        q1 * inv_n - mean[1] * mean[1]};
+  const float rstd[2] = {rsqrtf(fmaxf(var[0], 0.f) + a.eps),
+                         rsqrtf(fmaxf(var[1], 0.f) + a.eps)};
+  // Position of (row r0 + 8 h, columns n8) in the bf16 tile: 16-byte chunk
+  // j = j0 + n8 of row r lives at j ^ (r % 8), and r % 8 = r0 % 8 < 8 only
+  // flips the low 3 bits of j (j0 a multiple of 8, or n8 < 8), so chunk
+  // n8 = 8 m + k sits 8 m chunks past chunk k: 2 x 8 row bases.
+  constexpr int kBases = kN / 8 < 8 ? kN / 8 : 8;
+  unsigned char* base[2][kBases];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < kBases; ++k)
+      base[h][k] = ring_ptr + (r0 + 8 * h) * kPitch + (lane & 3) * 4 +
+                   (((wg * kN / 8 + k) ^ (r0 & 7)) << 4);
+  auto at = [&](int h, int n8) {
+    return reinterpret_cast<uint32_t*>(base[h][n8 % 8] + (n8 / 8) * 128);
+  };
+  // g * mask at (h, n8) and x^ there; the mask is the forward's ReLU, its
+  // pre-ReLU output computed as the forward computes it.
+  auto masked = [&](int h, int n8, float2 sc, float2 of, float a0, float a1,
+                    float2& xh) {
+    float2 gg =
+        __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(at(h, n8)));
+    const float d0 = a0 - mean[h], d1 = a1 - mean[h];
+    xh = make_float2(d0 * rstd[h], d1 * rstd[h]);
+    if (a.use_act) {
+      if (!(d0 * (rstd[h] * sc.x) + of.x > 0.f)) gg.x = 0.f;
+      if (!(d1 * (rstd[h] * sc.y) + of.y > 0.f)) gg.y = 0.f;
+    }
+    return gg;
+  };
+  cp_async_wait<0>();
+  consumers_sync();
+
+  // Pass 1: sum gh and gh * x^ by row; g * mask * x^ and g * mask by column.
+  const int grp = ((ct >> 5) & 3) * 8 + (lane >> 2);
+  float gs[2] = {0.f, 0.f}, gx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n8 = 0; n8 < kN / 8; ++n8) {
+    const int c = col0 + 8 * n8;
+    const float2 sc = __ldg(reinterpret_cast<const float2*>(a.scale + c));
+    const float2 of = __ldg(reinterpret_cast<const float2*>(a.offset + c));
+    float2 dsc = make_float2(0.f, 0.f), dof = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 xh;
+      const float2 gg = masked(h, n8, sc, of, acc[4 * n8 + 2 * h],
+                               acc[4 * n8 + 2 * h + 1], xh);
+      dsc.x += gg.x * xh.x;
+      dsc.y += gg.y * xh.y;
+      dof.x += gg.x;
+      dof.y += gg.y;
+      const float gh0 = gg.x * sc.x, gh1 = gg.y * sc.y;
+      gs[h] += gh0 + gh1;
+      gx[h] += gh0 * xh.x + gh1 * xh.y;
+    }
+    *reinterpret_cast<float2*>(cols + grp * kColPitch + c) = dsc;
+    *reinterpret_cast<float2*>(cols + (kGroups + grp) * kColPitch + c) = dof;
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      gs[h] += __shfl_xor_sync(0xffffffffu, gs[h], o);
+      gx[h] += __shfl_xor_sync(0xffffffffu, gx[h], o);
+    }
+  }
+  // Slots 2 + wg: this warpgroup's half of each row's two sums.
+  if ((lane & 3) == 0) {
+    xchg[(2 + wg) * kBM + r0] = make_float2(gs[0], gx[0]);
+    xchg[(2 + wg) * kBM + r0 + 8] = make_float2(gs[1], gx[1]);
+  }
+  consumers_sync();
+  float* part = a.partials + static_cast<size_t>(blockIdx.x) * 3 * kCout;
+  for (int c = ct; c < 2 * kCout; c += 256) {
+    const float* src = cols + (c / kCout) * kGroups * kColPitch + c % kCout;
+    float s = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < kGroups; ++i) s += src[i * kColPitch];
+    part[c] = s;
+  }
+  float mg[2], mgx[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2 u = xchg[2 * kBM + r0 + 8 * h];
+    const float2 v = xchg[3 * kBM + r0 + 8 * h];
+    mg[h] = (u.x + v.x) * inv_n;
+    // The variance's path, cut where the variance clamps.
+    mgx[h] = var[h] >= 0.f ? (u.y + v.y) * inv_n : 0.f;
+  }
+  consumers_sync();  // every column sum is read: group rows are free
+
+  // Pass 2: dpre over g in the ring (the same thread's words), fp32 dpre
+  // by column.
+#pragma unroll
+  for (int n8 = 0; n8 < kN / 8; ++n8) {
+    const int c = col0 + 8 * n8;
+    const float2 sc = __ldg(reinterpret_cast<const float2*>(a.scale + c));
+    const float2 of = __ldg(reinterpret_cast<const float2*>(a.offset + c));
+    float2 dbs = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 xh;
+      const float2 gg = masked(h, n8, sc, of, acc[4 * n8 + 2 * h],
+                               acc[4 * n8 + 2 * h + 1], xh);
+      const float p0 =
+          rstd[h] * (gg.x * sc.x) - rstd[h] * (mg[h] + xh.x * mgx[h]);
+      const float p1 =
+          rstd[h] * (gg.y * sc.y) - rstd[h] * (mg[h] + xh.y * mgx[h]);
+      dbs.x += p0;
+      dbs.y += p1;
+      *at(h, n8) = pack_bf16x2(p0, p1);
+    }
+    *reinterpret_cast<float2*>(cols + grp * kColPitch + c) = dbs;
+  }
+  consumers_sync();
+  for (int c = ct; c < kCout; c += 256) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < kGroups; ++i) s += cols[i * kColPitch + c];
+    part[2 * kCout + c] = s;
+  }
+#pragma unroll 4
+  for (int i = ct; i < kBM * kChunks; i += 256) {
+    const int r = i / kChunks, j = i % kChunks, gm = m0 + r;
+    if (gm >= a.M) continue;
+    *reinterpret_cast<uint4*>(a.out + static_cast<size_t>(gm) * kCout +
+                              8 * j) =
+        *reinterpret_cast<const uint4*>(ring_ptr + r * kPitch +
+                                        ((j ^ (r & 7)) << 4));
+  }
+}
+
+// The tiles' column sums of the backward: out_q[c] = sum over t, in order,
+// of partials[t][q][c], q = 0, 1, 2 -> ds, doff, db. A block takes 32
+// columns (a warp's lanes), its 8 warps every 8th tile, then warp 0 adds the
+// 8 in order.
+__global__ void __launch_bounds__(256)
+    column_sums_kernel(const float* partials, int tiles, int cout, float* ds,
+                       float* doff, float* db) {
+  __shared__ float part[8][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;  // of the 3 * cout columns
+  float s = 0.f;
+  if (c < 3 * cout)
+    for (int t = warp; t < tiles; t += 8)
+      s += partials[static_cast<size_t>(t) * 3 * cout + c];
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0 || c >= 3 * cout) return;
+  s = 0.f;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) s += part[w][lane];
+  float* out = c < cout ? ds : c < 2 * cout ? doff : db;
+  out[c % cout] = s;
+}
+
 // SPLIT = 1: a block computes all Cout = 64 * NW columns of its 64 rows.
 // SPLIT = 2 or 4: a cluster of SPLIT blocks shares the row tile, block
 // rank r computes columns r * 64 * NW .. of Cout = 64 * NW * SPLIT (each
@@ -197,7 +426,9 @@ __device__ __forceinline__ uint4 hadamard(uint4 v, uint4 q) {
 // through `xmap` (K = 1, stride 1, Cin % 8 == 0), the others do not read
 // `xmap`. BF16_BIAS: the bias is a.bias_bf16 (the probe's block), widened
 // to fp32; a runtime branch there slowed the package's Hadamard kernels.
-template <int NW, int SPLIT, int A, bool BF16_BIAS>
+// BWD: the backward epilogue (ln_relu_vjp) in place of the forward's, SPLIT
+// 1, LayerNorm on.
+template <int NW, int SPLIT, int A, bool BF16_BIAS, bool BWD>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_ln_relu_kernel(const __grid_constant__ CUtensorMap wmap,
                         const __grid_constant__ CUtensorMap xmap,
@@ -212,6 +443,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr uint32_t kTileBytes = kBBytes + (A == kTmaA ? kATileBytes : 0);
   static_assert(kS >= 3 && kLag >= 1, "the pipeline needs three stages");
   static_assert(kN >= 32 && SPLIT <= kMaxSplit, "no such wgmma");
+  static_assert(!BWD || (SPLIT == 1 && !BF16_BIAS &&
+                         bwd_epilogue_bytes<kCout>() <= kS * G::kStageBytes),
+                "the backward epilogue takes a whole tile in the ring");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -457,7 +691,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       s1 += acc[4 * n8 + 2] + acc[4 * n8 + 3];
       q1 += acc[4 * n8 + 2] * acc[4 * n8 + 2] + acc[4 * n8 + 3] * acc[4 * n8 + 3];
     }
-    if (a.use_norm) {
+    if (BWD || a.use_norm) {
 #pragma unroll
       for (int o = 1; o < 4; o <<= 1) {
         s0 += __shfl_xor_sync(0xffffffffu, s0, o);
@@ -482,8 +716,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (SPLIT > 1)
       cluster_sync();
-    else if (a.use_norm)
+    else if (BWD || a.use_norm)
       asm volatile("bar.sync 1, %0;\n" ::"n"(2 * 128) : "memory");  // consumers
+    if constexpr (BWD) {
+      ln_relu_vjp<kCout>(acc, xchg, ring, ring_ptr, a, m0, ct, wg, lane, r0,
+                         col0);
+      return;
+    }
     if (a.use_norm) {
       s0 = q0 = s1 = q1 = 0.f;
 #pragma unroll
@@ -549,14 +788,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int NW, int SPLIT, int A, bool BF16_BIAS>
+template <int NW, int SPLIT, int A, bool BF16_BIAS, bool BWD>
 cudaError_t launch_kernel(const ConvArgs& a, int grid, cudaStream_t stream) {
   using G = Geometry<NW>;
   bind_context();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv_ln_relu_kernel<NW, SPLIT, A, BF16_BIAS>,
+        conv_ln_relu_kernel<NW, SPLIT, A, BF16_BIAS, BWD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
     if (e != cudaSuccess) return e;
     configured = true;
@@ -582,23 +821,24 @@ cudaError_t launch_kernel(const ConvArgs& a, int grid, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = SPLIT > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, conv_ln_relu_kernel<NW, SPLIT, A, BF16_BIAS>,
+  e = cudaLaunchKernelEx(&cfg,
+                         conv_ln_relu_kernel<NW, SPLIT, A, BF16_BIAS, BWD>,
                          wmap, xmap, a);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // The Hadamard variant for fused_fusion.cu and block_probe.cu; otherwise
 // A by TMA where output row gm reads input row gm and rows are 16-byte
-// aligned, by cp.async where not.
-template <int NW, int SPLIT, bool H, bool B>
+// aligned, by cp.async where not. BWD: the backward epilogue.
+template <int NW, int SPLIT, bool H, bool B, bool BWD = false>
 cudaError_t launch_nw(const ConvArgs& a, int grid, cudaStream_t stream) {
   static_assert(H || !B, "a bf16 bias only in the Hadamard variant");
   if constexpr (H)
-    return launch_kernel<NW, SPLIT, kHadamardA, B>(a, grid, stream);
+    return launch_kernel<NW, SPLIT, kHadamardA, B, BWD>(a, grid, stream);
   else
     return a.K == 1 && a.stride == 1 && (a.Cin & 7) == 0
-               ? launch_kernel<NW, SPLIT, kTmaA, false>(a, grid, stream)
-               : launch_kernel<NW, SPLIT, kGatherA, false>(a, grid, stream);
+               ? launch_kernel<NW, SPLIT, kTmaA, false, BWD>(a, grid, stream)
+               : launch_kernel<NW, SPLIT, kGatherA, false, BWD>(a, grid, stream);
 }
 
 // The caller's split and grid must be ones this source builds: a split of
@@ -622,6 +862,30 @@ cudaError_t launch_conv(const ConvArgs& a, int cout, int split, int grid,
     case 512: return launch_nw<8, 1, H, B>(a, grid, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The backward: the conv again with the backward epilogue (a.g the output's
+// cotangent, a.out dpre, a.partials (grid, 3, cout)), one block a row tile
+// (grid = ceil(M / kBM), never a cluster: a row's sums stay in its block),
+// then the tiles' column sums into ds, doff, db (cout each). H: the
+// Hadamard variant.
+template <bool H>
+cudaError_t launch_conv_bwd(const ConvArgs& a, int cout, int grid, float* ds,
+                            float* doff, float* db, cudaStream_t stream) {
+  if (grid != (a.M + kBM - 1) / kBM || grid <= 0 || !a.use_norm)
+    return cudaErrorInvalidValue;
+  cudaError_t e;
+  switch (cout) {
+    case 64: e = launch_nw<1, 1, H, false, true>(a, grid, stream); break;
+    case 128: e = launch_nw<2, 1, H, false, true>(a, grid, stream); break;
+    case 256: e = launch_nw<4, 1, H, false, true>(a, grid, stream); break;
+    case 512: e = launch_nw<8, 1, H, false, true>(a, grid, stream); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  column_sums_kernel<<<(3 * cout + 31) / 32, 256, 0, stream>>>(
+      a.partials, grid, cout, ds, doff, db);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -71,3 +71,34 @@ extern "C" int drn_fused_fusion(const void* v, const void* q, const void* w,
   return launch(v, q, w, bias, nullptr, nullptr, out, B, T, D, Dout, K, 0,
                 split, grid, stream);
 }
+
+// The backward of fused_fusion_block (ops/cuda/autograd.py
+// FusedFusionBlockFn): the Hadamard conv recomputed with the backward
+// epilogue, which takes the output's cotangent g and writes dpre (B * T,
+// Dout) bf16, the tiles' column partials (grid, 3, Dout) fp32 and, summed
+// over the tiles, ds, doff, db (Dout) fp32. grid = ceil(B * T / 64), or
+// the launch is refused; never a cluster.
+extern "C" int drn_fused_fusion_block_bwd(
+    const void* v, const void* q, const void* w, const void* bias,
+    const void* scale, const void* offset, const void* g, void* dpre,
+    void* partials, void* ds, void* doff, void* db, int B, int T, int D,
+    int Dout, int K, int grid, void* stream) {
+  if (K % 2 == 0 || K > drn::kMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  drn::ConvArgs a{};
+  a.x = static_cast<const __nv_bfloat16*>(v);
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.scale = static_cast<const float*>(scale);
+  a.offset = static_cast<const float*>(offset);
+  a.out = static_cast<__nv_bfloat16*>(dpre);
+  a.g = static_cast<const __nv_bfloat16*>(g);
+  a.partials = static_cast<float*>(partials);
+  a.M = B * T; a.T = T; a.T_out = T; a.Cin = D; a.K = K; a.stride = 1;
+  a.left = (K - 1) / 2; a.use_norm = 1; a.use_act = 1;
+  a.nkc = (D + drn::kBK - 1) / drn::kBK;
+  return static_cast<int>(drn::launch_conv_bwd<true>(
+      a, Dout, grid, static_cast<float*>(ds), static_cast<float*>(doff),
+      static_cast<float*>(db), static_cast<cudaStream_t>(stream)));
+}

@@ -41,7 +41,8 @@ from drn_tpu_torch.evaluate import (build_model, make_eval_step,
 from drn_tpu_torch.train import make_optimizer, make_train_step
 from drn_tpu_torch.utils.profiling import host_ms, kernel_stats, span_table
 
-OWN_KERNELS = ("conv_ln_relu_kernel", "stem_kernel", "row_stats_kernel")
+OWN_KERNELS = ("conv_ln_relu_kernel", "column_sums_kernel", "stem_kernel",
+               "row_stats_kernel")
 
 
 def profile(config: str, steps: int, trace: str | None, top: int = 15,

@@ -214,13 +214,14 @@ def test_pallas_block_is_the_hadamard_variant():
 
 def test_conv_args_eps_defaults_to_the_package_kernels_eps():
     """`ConvArgs a{}` in conv_block.cu and fused_fusion.cu keeps flax's
-    1e-6 (sm90.cuh's kLnEps) without setting eps, and the epilogue reads
-    the field, not the constant."""
+    1e-6 (sm90.cuh's kLnEps) without setting eps, and the epilogues (the
+    forward's and the backward's, two rows each) read the field, not the
+    constant."""
     sm90 = (CSRC / "sm90.cuh").read_text()
     assert re.search(r"^constexpr float kLnEps = 1e-6f;", sm90, re.M)
     args = re.search(r"struct ConvArgs \{(.*?)\};", SOURCE, re.S).group(1)
     assert re.search(r"^  float eps = kLnEps;", args, re.M)
-    assert SOURCE.count("+ a.eps)") == 2 and "+ kLnEps)" not in SOURCE
+    assert SOURCE.count("+ a.eps)") == 4 and "+ kLnEps)" not in SOURCE
     for name in ("conv_block.cu", "fused_fusion.cu"):
         text = (CSRC / name).read_text()
         assert "drn::ConvArgs a{};" in text and "a.eps" not in text
@@ -229,6 +230,7 @@ def test_conv_args_eps_defaults_to_the_package_kernels_eps():
 @pytest.mark.parametrize("source,symbol,module", [
     ("block_probe", "drn_pallas_block", "block_probe"),
     ("conv_block", "drn_conv_ln_relu", "conv_block"),
+    ("conv_block", "drn_conv_ln_relu_bwd", "conv_block"),
     ("stem", "drn_fused_stem", "stem")])
 def test_entry_signatures_match_their_wrappers(source, symbol, module):
     """Each wrapper's ctypes declaration (`_build.entry`: pointers, ints,

@@ -29,11 +29,13 @@ from drn_tpu_torch.ops.cuda import (conv_ln_relu, fused_fusion_block,
 from drn_tpu_torch.ops.cuda.autograd import (ConvLnReluFn,
                                              FusedFusionBlockFn,
                                              FusedFusionFn, FusedStemFn)
-from drn_tpu_torch.ops.cuda.conv_block import (conv_ln_relu_reference,
+from drn_tpu_torch.ops.cuda.conv_block import (conv_ln_relu_bwd,
+                                               conv_ln_relu_bwd_reference,
+                                               conv_ln_relu_reference,
                                                conv_plan)
-from drn_tpu_torch.ops.cuda.fused_fusion import (fused_fusion,
-                                                 fused_fusion_block_reference,
-                                                 fused_fusion_reference)
+from drn_tpu_torch.ops.cuda.fused_fusion import (
+    fused_fusion, fused_fusion_block_bwd, fused_fusion_block_bwd_reference,
+    fused_fusion_block_reference, fused_fusion_reference)
 from drn_tpu_torch.ops.cuda.stem import fused_stem_reference, stem_plan
 
 pytestmark = pytest.mark.cuda
@@ -267,7 +269,16 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         conv_ln_relu(x, _randn(dev, 3, 64, 60), *_epilogue(dev, 60))
     with pytest.raises(RuntimeError):
         conv_ln_relu(x, w.clone().requires_grad_(), b, s, o)
+    g = _randn(dev, 2, 16, 64)
+    with pytest.raises(TypeError):                       # fp32 cotangent
+        conv_ln_relu_bwd(x, w, b, s, o, g.float())
+    with pytest.raises(ValueError):                      # g of stride 1
+        conv_ln_relu_bwd(x, w, b, s, o, g, 2)
     q = _randn(dev, 2, 64)
+    with pytest.raises(ValueError):                      # even K
+        fused_fusion_block_bwd(x, q, _randn(dev, 2, 64, 64), b, s, o, g)
+    with pytest.raises(TypeError):                       # fp32 cotangent
+        fused_fusion_block_bwd(x, q, w, b, s, o, g.float())
     for fusion, epi in ((fused_fusion_block, (s, o)), (fused_fusion, ())):
         with pytest.raises(ValueError):                  # even K
             fusion(x, q, _randn(dev, 2, 64, 64), b, *epi)
@@ -299,6 +310,14 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     assert fn(*ptrs, 2, 16, 64, 64, 3, 1, 1, stream_of(x)) == 0  # the plan
     for split, grid in ((2, 2), (1, 2), (3, 3), (4, 4)):  # 64 columns: 1
         assert fn(*ptrs, 2, 16, 64, 64, 3, split, grid, stream_of(x)) != 0
+    # The backward takes one block a row tile, never a cluster.
+    bwd = _build.entry("conv_block", "drn_conv_ln_relu_bwd", 11, 10)
+    f32 = [torch.empty(n, device=dev) for n in (3 * 64, 64, 64, 64)]
+    ptrs = [t.data_ptr() for t in (x, w, b, s, o, g, out, *f32)]
+    assert bwd(*ptrs, 2, 16, 64, 64, 3, 1, 16, 1, 1, 1, stream_of(x)) == 0
+    for grid in (2, 0):
+        assert bwd(*ptrs, 2, 16, 64, 64, 3, 1, 16, 1, 1, grid,
+                   stream_of(x)) != 0
     fn = _build.entry("block_probe", "drn_pallas_block", 7, 7, 1)
     ptrs = [t.data_ptr() for t in (x, q, w, bb, s, o, out)]
     assert fn(*ptrs, 2, 16, 64, 64, 3, 1, 1, 1e-6, stream_of(x)) == 0
@@ -395,6 +414,89 @@ def test_fused_fusion_block_and_fused_fusion_backward_vs_plain(dev):
                     (v, q, w, *_epilogue(dev, d)), (6, t, d), dev)
     _grads_vs_plain(FusedFusionFn, fused_fusion_reference,
                     (v, q, w, _epilogue(dev, d)[0]), (6, t, d), dev)
+
+
+# The backward kernels (conv_sm90.cuh's backward epilogue) against their
+# plain versions, which recompute the conv in fp32 on the card: the four
+# shapes above (stride 2 and T = 57 gather A by cp.async, K = 1 with Cin
+# 1536 takes it by TMA), K = 1 without the ReLU (the laterals), the other
+# widths the template builds at a ragged last tile, and the fusion block's
+# shape (the Hadamard A). Each output by its relative L2 error: dpre is the
+# VJP at the fp32 accumulator rounded once to bf16 on both sides, the fp32
+# sums differ in order.
+BWD_CASES = [("conv", 6, t, cin, 512, k, stride, True)
+             for t, cin, k, stride in ((64, 512, 3, 1), (64, 512, 3, 2),
+                                       (57, 128, 3, 2), (112, 1536, 1, 1))] + [
+    ("conv", 6, 64, 512, 512, 1, 1, False),
+    ("conv", 5, 57, 128, 64, 3, 1, True),
+    ("conv", 5, 57, 256, 128, 3, 2, False),
+    ("conv", 5, 57, 512, 256, 3, 1, True),
+    ("fusion", 6, 64, 512, 512, 3, 1, True)]
+
+
+def _bwd_args(dev, kind, b, t, cin, cout, k, stride, use_act):
+    x = _randn(dev, b, t, cin)
+    w = _randn(dev, k, cin, cout, scale=(k * cin) ** -0.5, seed=4)
+    g = _randn(dev, b, -(-t // stride), cout, seed=20)
+    if kind == "fusion":
+        q = _randn(dev, b, cin, scale=0.5, seed=5)
+        return (fused_fusion_block_bwd, fused_fusion_block_bwd_reference,
+                (x, q, w, *_epilogue(dev, cout), g))
+    return (conv_ln_relu_bwd, conv_ln_relu_bwd_reference,
+            (x, w, *_epilogue(dev, cout), g, stride, use_act))
+
+
+@pytest.mark.parametrize("kind,b,t,cin,cout,k,stride,use_act", BWD_CASES)
+def test_backward_kernels_vs_plain(dev, kind, b, t, cin, cout, k, stride,
+                                   use_act):
+    fn, plain, args = _bwd_args(dev, kind, b, t, cin, cout, k, stride,
+                                use_act)
+    name = fn.__name__
+    before = launch_counts()[name]
+    got = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 1
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == want[0].shape
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape
+        err = ((gt.float() - wt.float()).norm()
+               / wt.float().norm().clamp_min(1e-30)).item()
+        assert err <= GRAD_REL, (name, err)
+
+
+@pytest.mark.parametrize("kind", ["conv", "fusion"])
+def test_backward_kernels_sum_the_same_every_run(dev, kind):
+    """dscale, doffset and db are reduced without atomics: two runs give
+    the same bits (and dpre too)."""
+    fn, _, args = _bwd_args(dev, kind, 48, 64, 512, 512, 3, 1, True)
+    first, second = fn(*args), fn(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_train_step_launches_one_backward_kernel_a_block(dev):
+    """One stage-1 step of the flagship model: each of its 15 conv blocks
+    and 3 fusion blocks takes its LayerNorm+ReLU VJP in one backward
+    launch; an eval step launches neither."""
+    from drn_tpu_torch.bench import make_bench_batch
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.evaluate import build_model, make_eval_step
+    from drn_tpu_torch.train import loss_and_grads
+
+    cfg = get_config("charades_c3d")
+    batch = make_bench_batch(cfg, batch_size=8, device=dev)
+    model = build_model(cfg, device=dev, seed=0).train()
+    names = ("conv_ln_relu_bwd", "fused_fusion_block_bwd")
+    before = launch_counts()
+    loss = loss_and_grads(cfg, model, batch)["loss"]
+    assert torch.isfinite(loss)
+    after = launch_counts()
+    assert [after[n] - before[n] for n in names] == [15, 3]
+    with torch.no_grad():
+        make_eval_step(cfg, model.eval())(batch)
+    torch.cuda.synchronize()
+    assert [launch_counts()[n] - after[n] for n in names] == [0, 0]
 
 
 @pytest.mark.parametrize("cin", [1024, 500])
@@ -594,7 +696,8 @@ def test_glove_train_on_the_card_keeps_the_embedding(dev, tmp_path):
     vocab = build_vocab(cfg.data, cfg.model)
     before = launch_counts()
     model = train(cfg, max_steps=2, device_features=True)
-    assert launch_counts()["fused_fusion"] > before["fused_fusion"]
+    assert launch_counts()["fused_fusion_block_bwd"] > \
+        before["fused_fusion_block_bwd"]
     sd = model.state_dict()
     assert sd["embed.weight"].device.type == "cuda"
     assert torch.equal(sd["embed.weight"].cpu(),
@@ -652,7 +755,8 @@ def _direct(name, args):
 def test_custom_ops_equal_their_direct_launches(dev):
     """Each kernel through its custom op (the wrapper) and through its
     autograd Function gives its direct launch's output bit for bit; the
-    Function's backward recomputes through the op (its launches count)."""
+    Function's backward recomputes through an op (its launches count):
+    with LayerNorm, the kernel's backward op."""
     from drn_tpu_torch.ops.cuda import fused_fusion as ff
 
     x, v = _randn(dev, 3, 57, 128), _randn(dev, 3, 64, 512, seed=8)
@@ -665,12 +769,13 @@ def test_custom_ops_equal_their_direct_launches(dev):
     # name → (args, wrapper, Function, the launches of its backward)
     cases = {
         "conv_ln_relu": ((x, w, *epi, 2, True, True), conv_ln_relu,
-                         ConvLnReluFn, {"conv_ln_relu": 1}),
+                         ConvLnReluFn, {"conv_ln_relu_bwd": 1}),
         "fused_stem": ((xs, si, bi, w, *epi), fused_stem, FusedStemFn,
                        {"fused_stem": 1}),
         "fused_fusion_block": ((v, q, wf, *epi), fused_fusion_block,
                                FusedFusionBlockFn,
-                               {"fused_fusion": 1, "conv_ln_relu": 1}),
+                               {"fused_fusion_block_bwd": 1,
+                                "conv_ln_relu": 1}),
         "fused_fusion": ((v, q, wf, epi[0]), ff.fused_fusion, FusedFusionFn,
                          {"conv_ln_relu": 1}),
     }
@@ -804,7 +909,8 @@ def _overfit(dev, cfg, n, steps, key):
     after = launch_counts()
     assert all(after[k] > before[k] for k in ("fused_stem", "conv_ln_relu",
                                               "fused_fusion_block",
-                                              "fused_fusion"))
+                                              "conv_ln_relu_bwd",
+                                              "fused_fusion_block_bwd"))
     return history
 
 
@@ -870,14 +976,15 @@ def test_worker_fed_train_step_equals_the_in_process_one(dev):
 def test_recipe_demo_gates_on_the_card(dev, tmp_path):
     """tests/test_recipe.py's gates through the kernels (synthetic_recipe,
     1 epoch a stage, seed 0), the IoU-only stage 2 bit-identical outside
-    the IoU head, and `fused_fusion` in stage 1's backward."""
+    the IoU head, and the backward kernels in stage 1's backward."""
     from drn_tpu_torch.probes import recipe_demo
 
     info = {}
     results = recipe_demo.run_demo("synthetic_recipe", 1, 1, str(tmp_path),
                                    seed=0, device=dev, run=info)
     assert recipe_demo.gate_failures(results, info) == []
-    assert info["launches"]["stage1_train"]["fused_fusion"] > 0
+    for k in ("conv_ln_relu_bwd", "fused_fusion_block_bwd"):
+        assert info["launches"]["stage1_train"][k] > 0
     for k in ("fused_stem", "fused_fusion_block", "conv_ln_relu"):
         assert info["launches"]["stage1_train"][k] > 0
         assert info["launches"]["stage2_eval"][k] > 0

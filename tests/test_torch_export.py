@@ -295,8 +295,9 @@ FAKE_CASES = [  # (T, Cin, Cout, K, stride): stride 2, ragged T, K 1, Cin 500
 @pytest.mark.parametrize("t,cin,cout,k,stride", FAKE_CASES)
 def test_fake_functions_match_the_plain_versions(t, cin, cout, k, stride):
     """Each custom op's fake function on fake CUDA tensors gives the shape
-    and dtype of its plain version's output on the CPU."""
+    and dtype of its plain version's output (or outputs) on the CPU."""
     bf, f32 = torch.bfloat16, torch.float32
+    out_t = -(-t // stride)
     shapes = {
         "conv_ln_relu": ([(2, t, cin), (k, cin, cout)] + [(cout,)] * 3,
                          [bf, bf, f32, f32, f32], (stride, True, True)),
@@ -308,14 +309,23 @@ def test_fake_functions_match_the_plain_versions(t, cin, cout, k, stride):
         "fused_stem": ([(2, t, cin), (cin,), (cin,), (k, cin, cout)]
                        + [(cout,)] * 3, [f32, f32, f32, bf, f32, f32, f32],
                        (True, True)),
+        "conv_ln_relu_bwd": ([(2, t, cin), (k, cin, cout)] + [(cout,)] * 3
+                             + [(2, out_t, cout)],
+                             [bf, bf, f32, f32, f32, bf], (stride, True)),
+        "fused_fusion_block_bwd": ([(2, t, cin), (2, cin), (k, cin, cout)]
+                                   + [(cout,)] * 3 + [(2, t, cout)],
+                                   [bf, bf, bf, f32, f32, f32, bf], ()),
     }
     plain = {"conv_ln_relu": conv_block.conv_ln_relu_reference,
              "fused_fusion_block": fused_fusion.fused_fusion_block_reference,
              "fused_fusion": fused_fusion.fused_fusion_reference,
              "fused_stem": lambda *a: stem.fused_stem_reference(
-                 *a[:7], torch.bfloat16, *a[7:])}
+                 *a[:7], torch.bfloat16, *a[7:]),
+             "conv_ln_relu_bwd": conv_block.conv_ln_relu_bwd_reference,
+             "fused_fusion_block_bwd":
+                 fused_fusion.fused_fusion_block_bwd_reference}
     for name, (dims, dtypes, rest) in shapes.items():
-        if name != "conv_ln_relu" and stride != 1:
+        if not name.startswith("conv_ln_relu") and stride != 1:
             continue  # the fusion kernels and the stem have stride 1
         cpu = [torch.ones(s, dtype=d) for s, d in zip(dims, dtypes)]
         want = plain[name](*cpu, *rest)
@@ -323,5 +333,9 @@ def test_fake_functions_match_the_plain_versions(t, cin, cout, k, stride):
             fake = [torch.empty(s, dtype=d, device="cuda")
                     for s, d in zip(dims, dtypes)]
             got = getattr(torch.ops.drn_tpu_torch, name)(*fake, *rest)
-        assert (got.shape, got.dtype, got.device.type) == \
-            (want.shape, want.dtype, "cuda"), name
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        assert len(got) == len(want), name
+        for g, w_ in zip(got, want):
+            assert (g.shape, g.dtype, g.device.type) == \
+                (w_.shape, w_.dtype, "cuda"), name

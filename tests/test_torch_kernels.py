@@ -298,6 +298,60 @@ def test_fused_fusion_block_gradients_match_jax(dtype):
         _grad_close(gt, wt, dtype)
 
 
+# The backward kernels' closed-form LayerNorm+ReLU VJP (their plain
+# versions, with the kernels' arithmetic) against autograd through
+# `layer_norm` (`epilogue_vjp`) at the same fp32 conv + b. A constant row
+# (every input of a video zero, the bias 0.1 in every channel) makes the
+# fast variance E[x²] − E[x]² come out below 0 in fp32, where it clamps and
+# its gradient stops. Both sides see one fp32 `pre`, so the fp32 outputs
+# differ by summation order only; dpre in bf16 by its one rounding.
+
+from drn_tpu_torch.ops.cuda.autograd import epilogue_vjp  # noqa: E402
+from drn_tpu_torch.ops.cuda.conv_block import (  # noqa: E402
+    conv_ln_relu_bwd_reference, conv_taps)
+from drn_tpu_torch.ops.cuda.fused_fusion import (  # noqa: E402
+    fused_fusion_block_bwd_reference)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("constant_row", [False, True])
+@pytest.mark.parametrize("kind,k,stride,use_act", [
+    ("conv", 3, 1, True), ("conv", 3, 2, True), ("conv", 1, 1, False),
+    ("fusion", 3, 1, True)])
+def test_ln_relu_backward_closed_form_matches_autograd(dtype, constant_row,
+                                                       kind, k, stride,
+                                                       use_act):
+    tdt = DTYPES[dtype][1]
+    p = _np_inputs(t=32, k=k)
+    b = _bias(p["b"], tdt)
+    if constant_row:
+        p["x"][1] = 0.0
+        b = torch.full_like(b, 0.1)
+    rng = np.random.default_rng(11)
+    out_t, left, _ = same_padding(32, k, stride)
+    x, w = _torch(p["x"], tdt), _torch(p["w"], tdt)
+    scale = _torch(p["scale"], torch.float32)
+    offset = _torch(p["offset"], torch.float32)
+    g = _torch(rng.normal(size=(4, out_t, 128)).astype(np.float32), tdt)
+    if kind == "fusion":
+        q = _torch(rng.normal(size=(4, 128)).astype(np.float32), tdt)
+        got = fused_fusion_block_bwd_reference(x, q, w, b, scale, offset, g)
+        x = x * q[:, None, :]
+    else:
+        got = conv_ln_relu_bwd_reference(x, w, b, scale, offset, g, stride,
+                                         use_act)
+    pre = conv_taps(x, w, out_t, left, stride) + b
+    mean = pre.mean(-1)
+    clamped = (pre * pre).mean(-1) - mean * mean < 0
+    assert bool(clamped[1].all()) == constant_row
+    dpre, ds, do = epilogue_vjp(pre, scale, offset, g, True, use_act)
+    assert got[0].dtype == tdt and got[0].shape == dpre.shape
+    assert all(t.dtype == torch.float32 for t in got[1:])
+    for gt, wt in zip(got, (dpre, ds, do, dpre.sum((0, 1)))):
+        err = ((gt.float() - wt).norm() / wt.norm()).item()
+        assert err <= (1e-5 if gt.dtype == torch.float32 else 2 ** -8), err
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_fused_stem_gradients_match_jax(dtype):
     jdt, tdt = DTYPES[dtype][:2]
