@@ -17,7 +17,11 @@ but for `cli`, which runs after `mesh`:
               `fused_fusion` at a model-axis rank's shape (B=384, half
               the columns) and at B=48 (its splits), and the
               stem at activitynet_c3d's Cin=500 (B=16, T=256) and at
-              synthetic_recipe's Cin=256 -> Cout=128 (B=64, T=64), held
+              synthetic_recipe's Cin=256 -> Cout=128 (B=64, T=64), and
+              2D-TAN's `map_epilogue` at the 8 map-conv shapes of
+              tacos_2dtan_c3d's step (B=128, 156x156 to 128x128, C=512,
+              bit for bit against its plain version; library: relu(y +
+              b) * w in PyTorch's bf16 ops), held
               against its plain PyTorch version on the card (bf16
               tolerance below), and timed with CUDA events over a CUDA
               graph of back-to-back launches: the kernel, its plain
@@ -33,7 +37,11 @@ but for `cli`, which runs after `mesh`:
               eval step's queries/s, its matmul + conv FLOPs
               (`utils.flops.estimate_flops`, equal through the kernels and
               through the plain versions) and its share of the card's
-              bf16 peak (mfu).
+              bf16 peak (mfu). Then `tan`: 2D-TAN (tacos_2dtan_c3d) through
+              `evaluate` on the synthetic fixture, 2 full steps of B=128:
+              the launch counts of that run (8 `map_epilogue` a step, no
+              DRN kernel), the map-conv output cells its counter counted
+              (128 x 161,984 a step), finite metrics, queries/s.
   4. train    the two-stage trainer at the same width with its training
               batch (data.batch_size=384) on one device-resident batch of
               the fixture: 5 stage-1 steps through `make_train_step` (finite,
@@ -265,7 +273,8 @@ Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
 launches from the `main` run, the backward kernels' from the `train` run,
 `fused_fusion`'s from rank 0 of the `mesh` phase's (1, 2, 1) run,
-`pallas_block`'s from the `probe` run), and last {"ok": true, "device":
+`pallas_block`'s from the `probe` run, `map_epilogue`'s from the `tan`
+run), and last {"ok": true, "device":
 {...}}.
 
 Without a CUDA device, or run in a directory without the package, it exits
@@ -372,6 +381,12 @@ MESH_GRAD_FLOOR = 0.01
 CONFIG = "charades_c3d_batched_eval"
 EXAMPLES = 120  # 48 + 48 + 24: three eval steps, the last one padded
 TRAIN_BATCH = 384  # the config's data.batch_size, its training batch
+# 2D-TAN (models/tan.py) at the batch of the benchmark cell that runs it
+# (tacos.tan_eval.b128), full steps only: every step computes B × 161,984
+# map-conv output cells.
+TAN_CONFIG = "tacos_2dtan_c3d"
+TAN_BATCH = 128
+TAN_STEPS = 2
 TRAIN_STEPS = 5
 
 # The dataset phase's corpus: Charades-STA format, C3D width.
@@ -438,8 +453,12 @@ def kernel_phase(cfg, dev):
     import torch
     import torch.nn.functional as F
 
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.models import tan
     from drn_tpu_torch.models.drn import conv_block_sites
     from drn_tpu_torch.ops.cuda import conv_block, fused_fusion, stem
+    from drn_tpu_torch.ops.cuda.map_epilogue import (map_epilogue,
+                                                     map_epilogue_reference)
     from drn_tpu_torch.utils.profiling import cuda_time_ms
 
     d, kf = cfg.model.hidden_dim, cfg.model.fusion_kernel_size
@@ -669,6 +688,53 @@ def kernel_phase(cfg, dev):
         rows[-1].update(blocks=stem.stem_plan(b * t, cin, cout, 3, sms).grid,
                         tflops=flops / rows[-1]["ms"] / 1e9)
 
+    def tan_rows(b):
+        """map_epilogue: one row per map conv of TAN_CONFIG's step (its
+        (H, W) and count weights from `models/tan.py`), one launch each a
+        step, held to its plain version bit for bit (the same fp32 sum,
+        ReLU and product, one rounding to bf16). Library: the same pass in
+        PyTorch's bf16 ops, relu(y + b) · w. Bound: y read and written,
+        the bias and w read."""
+        tcfg = get_config(TAN_CONFIG)
+        m = tcfg.model
+        mask = tan.valid_mask(tcfg.data.num_clips // m.frame_pool,
+                              m.scale_layers)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for layer, w in enumerate(tan.count_weights(
+                mask, m.map_kernel_size, m.map_paddings)):
+            h, wd, c = *w.shape, m.hidden_dim
+            y = torch.randn(b, h, wd, c, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+            w = w.to(dev)
+            bias16, w16 = bias.bfloat16(), w.bfloat16()[..., None]
+            with torch.no_grad():
+                want = map_epilogue_reference(y.clone(), bias, w)
+                got = map_epilogue(y.clone(), bias, w)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"map_epilogue {(b, h, wd, c)}: max |kernel - plain| "
+                        f"{(got.float() - want.float()).abs().max().item()}"
+                        f", not bit for bit")
+                del got, want
+                flops, nbytes = 3 * y.numel(), 4 * y.numel() + 4 * (c + h * wd)
+                bms, by = bound(flops, nbytes)
+                rows.append(dict(
+                    path="tan", kernel="map_epilogue",
+                    shape=dict(B=b, H=h, W=wd, C=c, layer=layer), per_step=1,
+                    max_abs_err=0.0,
+                    ms=cuda_time_ms(
+                        lambda: map_epilogue(y, bias, w)),
+                    plain_ms=cuda_time_ms(
+                        lambda: map_epilogue_reference(y, bias,
+                                                                    w)),
+                    library_ms=cuda_time_ms(
+                        lambda: torch.relu_(y + bias16).mul_(w16)),
+                    bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
+            del y
+            torch.cuda.empty_cache()
+
     fwd = [s[1:] for s in conv_block_sites(cfg.model, t0)]
     b = cfg.eval.batch_size
     conv_rows("eval", b, Counter(fwd))
@@ -697,6 +763,9 @@ def kernel_phase(cfg, dev):
     stem_row("coverage", 16, 256, 500, 0, config="activitynet_c3d")
     stem_row("coverage", 64, 64, 256, 0, cout=128, config="synthetic_recipe")
 
+    # 2D-TAN's map convs' epilogue, at the 8 shapes of its step.
+    tan_rows(TAN_BATCH)
+
     totals = {}
     for r in rows:
         tot = totals.setdefault((r["path"], r["kernel"]), Counter())
@@ -714,7 +783,8 @@ def eval_launches_per_step(m):
     return {"fused_stem": 1, "fused_fusion_block": m.num_levels,
             "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
             + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0,
-            "conv_ln_relu_bwd": 0, "fused_fusion_block_bwd": 0}
+            "conv_ln_relu_bwd": 0, "fused_fusion_block_bwd": 0,
+            "map_epilogue": 0}
 
 
 def train_launches_per_step(m):
@@ -726,7 +796,7 @@ def train_launches_per_step(m):
     return {"fused_stem": 2, "fused_fusion_block": m.num_levels,
             "conv_ln_relu": blocks + m.num_levels, "fused_fusion": 0,
             "pallas_block": 0, "conv_ln_relu_bwd": blocks,
-            "fused_fusion_block_bwd": m.num_levels}
+            "fused_fusion_block_bwd": m.num_levels, "map_epilogue": 0}
 
 
 def main_path_phase(cfg, dev):
@@ -802,6 +872,63 @@ def main_path_phase(cfg, dev):
         step_qps=b / (step_ms / 1e3), plain_step_ms=plain_step_ms,
         plain_step_qps=b / (plain_step_ms / 1e3), flops_per_step=flops,
         mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        device=torch.cuda.get_device_name(0))
+
+
+def tan_phase(dev):
+    """2D-TAN (TAN_CONFIG) through `evaluate` on the synthetic fixture,
+    TAN_STEPS full steps of TAN_BATCH: the launch counts of that run (one
+    `map_epilogue` a map conv a step, no DRN kernel), the map-conv output
+    cells its counter counted (TAN_BATCH × Σ_l H_l·W_l a step), finite
+    metrics, and the run's queries/s."""
+    import torch
+
+    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.data.pipeline import make_dataset
+    from drn_tpu_torch.evaluate import build_model, evaluate
+    from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from drn_tpu_torch.ops.cuda.map_epilogue import map_epilogue
+
+    base = get_config(TAN_CONFIG)
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, dataset="synthetic",
+                                 synthetic_examples=TAN_BATCH * TAN_STEPS),
+        eval=dataclasses.replace(base.eval, batch_size=TAN_BATCH))
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    dataset = make_dataset(cfg.data, cfg.model, split="test")
+    setup_s = time.perf_counter() - t0
+    evaluate(cfg, model, dataset, device=dev)  # warm: cuDNN's plans
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = evaluate(cfg, model, dataset, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches, cells = launch_counts(), map_epilogue.cells
+    per_step = {k: 0 for k in launches}
+    per_step["map_epilogue"] = cfg.model.map_layers
+    want = {k: n * TAN_STEPS for k, n in per_step.items()}
+    cells_per_step = TAN_BATCH * sum(
+        model.map_conv.count_weight(l).numel()
+        for l in range(cfg.model.map_layers))
+    if launches != want or cells != TAN_STEPS * cells_per_step:
+        raise AssertionError(f"2D-TAN launch counts {launches}, expected "
+                             f"{want}; map-conv cells {cells}, expected "
+                             f"{TAN_STEPS * cells_per_step}")
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"2D-TAN: non-finite or empty metrics: "
+                             f"{metrics}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, dict(
+        phase="tan", config=TAN_CONFIG, dataset="synthetic",
+        examples=len(dataset), steps=TAN_STEPS, batch_size=TAN_BATCH,
+        launches=launches, map_conv_cells=cells,
+        map_conv_cells_per_step=cells_per_step, metrics=metrics,
+        setup_s=setup_s, evaluate_s=eval_s,
+        evaluate_qps=len(dataset) / eval_s,
         device=torch.cuda.get_device_name(0))
 
 
@@ -2885,6 +3012,8 @@ def main() -> int:
 
     launches, main_line = main_path_phase(cfg, dev)
     emit(main_line)
+    tan_launches, tan_line = tan_phase(dev)
+    emit(tan_line)
 
     train_cfg = base.replace(data=dataclasses.replace(
         base.data, dataset="synthetic", batch_size=TRAIN_BATCH,
@@ -2915,6 +3044,7 @@ def main() -> int:
     launches["fused_fusion"] = mesh_line["runs"][
         "flagship_" + _mesh_tag((1, 2, 1))]["launches"][0]["fused_fusion"]
     launches["pallas_block"] = probe_launches["pallas_block"]
+    launches["map_epilogue"] = tan_launches["map_epilogue"]
 
     print(card(), flush=True)
 
@@ -2941,6 +3071,9 @@ def main() -> int:
             "drn_tpu/ops/pallas/fused_fusion.py:200"),
         "pallas_block": ("drn_tpu_torch/ops/cuda/csrc/block_probe.cu",
                          "conv_sm90.cuh", "scripts/pallas_block_probe.py:52"),
+        # 2D-TAN runs in the port alone: no TPU kernel of its own.
+        "map_epilogue": ("drn_tpu_torch/ops/cuda/csrc/map_epilogue.cu", None,
+                         None),
     }
     # `pallas_block` at the probe's one shape, its own path.
     totals["probe", "pallas_block"] = Counter(
@@ -2950,9 +3083,11 @@ def main() -> int:
         **{"bound_" + probe_line["bound_by"]: probe_line["bound_ms"]})
     # Per eval step for the eval path's kernels (their first slice), per
     # train step for the backward kernels, per step of a model-axis rank
-    # for `fused_fusion`, per call at the probe's shape for `pallas_block`.
+    # for `fused_fusion`, per call at the probe's shape for `pallas_block`,
+    # per 2D-TAN eval step (B=128) for `map_epilogue`.
     path = {"fused_fusion": "mesh", "pallas_block": "probe",
-            "conv_ln_relu_bwd": "train", "fused_fusion_block_bwd": "train"}
+            "conv_ln_relu_bwd": "train", "fused_fusion_block_bwd": "train",
+            "map_epilogue": "tan"}
     kernels = []
     for name, (source, header, replaces) in where.items():
         tot = totals[path.get(name, "eval"), name]

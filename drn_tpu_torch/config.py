@@ -13,6 +13,12 @@ Fields the port keeps only so that both copies stay equal:
     version (drn_tpu_torch/ops/cuda/).
   * `iou_fold_mix_min_locations`: the port samples the IoU head per level
     for every grid size (models/heads.py).
+
+Architectures the JAX package does not have live in a registry of their
+own (`_ARCH_REGISTRY`), so that `_REGISTRY` and `list_configs()` stay the
+JAX package's: `get_config` reaches both. Such a configuration's `model`
+is its architecture's dataclass, whose `arch` names it (`architecture`);
+the entry points that run DRN alone refuse it by name (`require_drn`).
 """
 
 from __future__ import annotations
@@ -149,6 +155,34 @@ class ExperimentConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class TANModelConfig:
+    """2D-TAN (Zhang et al., AAAI 2020; arXiv:1912.03590), models/tan.py:
+    clip features → k=1 conv + ReLU → average pool of `frame_pool` clips
+    (N = num_clips / frame_pool) → the sparse N×N moment map of the stacked
+    max-pools `scale_layers` → fusion with a unidirectional LSTM's last
+    valid state → `map_layers` masked 2-D convs of `map_kernel_size`
+    (`map_paddings`, each followed by the count-weighted mask) → a 1×1
+    prediction conv at the valid moments."""
+
+    arch: str = "2d-tan"
+    feature_dim: int = 4096
+    hidden_dim: int = 512
+    embed_dim: int = 300
+    vocab_size: int = 8000
+    num_lstm_layers: int = 3
+    frame_pool: int = 2
+    scale_layers: Tuple[int, ...] = (16, 8, 8, 8)
+    map_layers: int = 8
+    map_kernel_size: int = 5
+    map_paddings: Tuple[int, ...] = (16, 0, 0, 0, 0, 0, 0, 0)
+    dtype: str = "bfloat16"          # the frame, fusion and map convs
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        assert len(self.map_paddings) == self.map_layers
+
+
 def _cfg(name: str, **sections: Dict[str, Any]) -> ExperimentConfig:
     base = ExperimentConfig(name=name)
     updates = {}
@@ -250,10 +284,46 @@ _REGISTRY: Dict[str, ExperimentConfig] = {
 }
 
 
+# Architectures beside DRN. The 2D-TAN TACoS model "128x128-K5L8-pool":
+# 256 sampled C3D clips pooled in pairs to a 128×128 map, every one of its
+# 2,548 valid moments ranked (top_k) before NMS, scored by the match
+# logit alone. Graded at the DRN configurations' tIoU (0.3, 0.5, 0.7);
+# the published 2D-TAN configuration grades TACoS at (0.1, 0.3, 0.5).
+_ARCH_REGISTRY: Dict[str, ExperimentConfig] = {
+    "tacos_2dtan_c3d": ExperimentConfig(
+        name="tacos_2dtan_c3d",
+        model=TANModelConfig(),
+        data=DataConfig(dataset="tacos", feature_type="c3d", num_clips=256,
+                        max_query_len=25),
+        eval=EvalConfig(top_k=2548, score_use_iou_head=False),
+    ),
+}
+
+
 def get_config(name: str) -> ExperimentConfig:
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown config {name!r}; available: {sorted(_REGISTRY)}")
-    return _REGISTRY[name]
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name in _ARCH_REGISTRY:
+        return _ARCH_REGISTRY[name]
+    raise KeyError(f"unknown config {name!r}; available: "
+                   f"{sorted(_REGISTRY) + sorted(_ARCH_REGISTRY)}")
+
+
+def architecture(cfg: ExperimentConfig) -> str:
+    """"drn", or the `arch` of another architecture's model config."""
+    return getattr(cfg.model, "arch", "drn")
+
+
+def require_drn(cfg: ExperimentConfig, entry: str) -> None:
+    """Raise NotImplementedError when `cfg` is not a DRN configuration:
+    `entry` (train, serve, export, infer, the mesh axes) runs DRN alone;
+    `evaluate` runs every architecture."""
+    arch = architecture(cfg)
+    if arch != "drn":
+        raise NotImplementedError(
+            f"{entry} runs DRN only: {cfg.name} is a {arch} configuration, "
+            "which the port evaluates (drn_tpu_torch.evaluate) and nothing "
+            "else yet")
 
 
 def list_configs():

@@ -2,6 +2,12 @@
 score → top-k → NMS → recall counts, all on the device; `evaluate()` loops
 it over a dataset and fetches the counts once at the end.
 
+`build_model` builds the configuration's architecture: DRN, or 2D-TAN
+(models/tan.py) for a configuration whose model is `TANModelConfig`; the
+step, the loop and the grading are the same for both (2D-TAN returns its
+valid moments' match logits and segments, and scores by the match logit
+alone).
+
 Entry points (`build_model`, `evaluate`, `predict`, `main`) run on `cuda`
 unless the caller passes `device="cpu"`; with no CUDA device and none
 asked for they raise instead of running on the CPU.
@@ -43,12 +49,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from drn_tpu_torch.config import ExperimentConfig, get_config
+from drn_tpu_torch.config import ExperimentConfig, architecture, get_config
 from drn_tpu_torch.convert import load_torch_checkpoint
 from drn_tpu_torch.data.pipeline import (build_vocab, make_batch_iterator,
                                          make_dataset)
 from drn_tpu_torch.models import DRN
 from drn_tpu_torch.models.layers import KERNEL_OPS, Ops
+from drn_tpu_torch.models.tan import TAN
 from drn_tpu_torch.ops.metrics import metric_name, recall_at_n
 from drn_tpu_torch.ops.nms import batched_temporal_nms
 from drn_tpu_torch.parallel.mesh import (Mesh, all_sum, check_axes,
@@ -80,7 +87,7 @@ def init_parameters(model: DRN, seed: int = 0) -> DRN:
                 p.fill_(1.0)  # every LayerNorm's name holds "norm"
             elif "bias" in name:
                 p.zero_()
-            elif name == "embed.weight":
+            elif name == "embed.weight" or name.endswith(".embed.weight"):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.1)
             else:
                 fan_in = math.prod(p.shape[1:])
@@ -91,9 +98,11 @@ def init_parameters(model: DRN, seed: int = 0) -> DRN:
 def build_model(cfg: ExperimentConfig, device=None, seed: int = 0,
                 ops: Ops = KERNEL_OPS,
                 pretrained_embeddings: Optional[np.ndarray] = None) -> DRN:
-    """The DRN of `cfg` with seeded random weights, on `device` (cuda by
-    default). `ops=PLAIN_OPS` builds the model from the kernels' plain
-    versions, the one the kernels' model is held against on the card.
+    """The model of `cfg` (DRN, or 2D-TAN for a TANModelConfig) with seeded
+    random weights, on `device` (cuda by default). `ops=PLAIN_OPS` builds
+    the DRN from the kernels' plain versions, the one the kernels' model is
+    held against on the card (2D-TAN has no `ops`: its map-conv epilogue
+    runs its plain version on a CPU tensor).
     GloVe mode: `pretrained_embeddings` (the vocab's table) fill the
     embedding, frozen, and its row count replaces `model.vocab_size`."""
     dev = resolve_device(device)
@@ -101,9 +110,12 @@ def build_model(cfg: ExperimentConfig, device=None, seed: int = 0,
     if pretrained_embeddings is not None:
         mcfg = dataclasses.replace(
             mcfg, vocab_size=pretrained_embeddings.shape[0])
-    model = init_parameters(DRN(
-        mcfg, base_len=cfg.data.num_clips, ops=ops,
-        freeze_embeddings=pretrained_embeddings is not None), seed)
+    frozen = pretrained_embeddings is not None
+    if architecture(cfg) == "2d-tan":
+        model = init_parameters(TAN(mcfg, cfg.data.num_clips, frozen), seed)
+    else:
+        model = init_parameters(DRN(mcfg, base_len=cfg.data.num_clips,
+                                    ops=ops, freeze_embeddings=frozen), seed)
     if pretrained_embeddings is not None:
         with torch.no_grad():
             model.query_encoder.embed.weight.copy_(

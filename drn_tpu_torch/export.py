@@ -94,8 +94,10 @@ def export_eval_step(cfg, model, batch_size: Optional[int] = None,
     asks for the CPU); returns (ExportedProgram, sidecar). The weights are
     traced as the program's parameters; `load_exported`'s callable takes
     others of the same schema."""
+    from drn_tpu_torch.config import require_drn
     from drn_tpu_torch.evaluate import resolve_device
 
+    require_drn(cfg, "export")
     dev = resolve_device(device)
     model.to(dev).eval()
     spec = batch_spec(cfg, batch_size)
@@ -197,7 +199,7 @@ def main(argv=None):
         p.error("--checkpoint-dir and --torch-checkpoint are mutually "
                 "exclusive; pass at most one parameter source")
 
-    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.config import get_config, require_drn
     from drn_tpu_torch.convert import load_torch_checkpoint
     from drn_tpu_torch.data.pipeline import build_vocab
     from drn_tpu_torch.evaluate import (build_model, resolve_device,
@@ -206,6 +208,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)  # no card: raise before any read
     cfg = with_data_flags(get_config(args.config), args)
+    require_drn(cfg, "export")
     # The vocab sizes the embedding table; without it a GloVe-trained
     # checkpoint would never fit the exported parameters.
     vocab = build_vocab(cfg.data, cfg.model)

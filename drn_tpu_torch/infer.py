@@ -66,7 +66,7 @@ def main(argv=None):
         p.error("--checkpoint-dir and --torch-checkpoint are mutually "
                 "exclusive; pass exactly one parameter source")
 
-    from drn_tpu_torch.config import get_config
+    from drn_tpu_torch.config import get_config, require_drn
     from drn_tpu_torch.data.features import (effective_feature_fps,
                                              resample_features)
     from drn_tpu_torch.data.pipeline import build_vocab
@@ -76,6 +76,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)  # no card: raise before any read
     cfg = with_data_flags(get_config(args.config), args)
+    require_drn(cfg, "infer")
     raw = load_features(args.features, args.video_id)
     feats = resample_features(raw, cfg.data.num_clips)
     duration = (args.duration if args.duration > 0

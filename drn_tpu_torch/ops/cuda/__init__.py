@@ -17,7 +17,10 @@ when it runs. (`fused_fusion`, the wrapper, is reached through its module
 of the same name: `drn_tpu_torch.ops.cuda.fused_fusion.fused_fusion`.)
 `pallas_block` is the measurement probe's block (`drn_tpu_torch.probes`),
 with its plain version and the probe's comparison `xla_block`; it never
-lies in an exported graph and stays a direct ctypes launch.
+lies in an exported graph and stays a direct ctypes launch, and so does
+`map_epilogue`, 2D-TAN's map-conv epilogue (models/tan.py; no export
+runs 2D-TAN), which counts beside its launches the map-conv output cells
+it goes over (`map_epilogue.cells`; a DRN step reads 0 of both).
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ from drn_tpu_torch.ops.cuda.block_probe import (pallas_block,
 from drn_tpu_torch.ops.cuda.conv_block import conv_ln_relu, conv_ln_relu_bwd
 from drn_tpu_torch.ops.cuda.fused_fusion import (fused_fusion_block,
                                                  fused_fusion_block_bwd)
+from drn_tpu_torch.ops.cuda.map_epilogue import map_epilogue
 from drn_tpu_torch.ops.cuda.stem import fused_stem
 
 KERNELS = (fused_stem, fused_fusion_block, conv_ln_relu, _fusion.fused_fusion,
-           pallas_block, conv_ln_relu_bwd, fused_fusion_block_bwd)
+           pallas_block, conv_ln_relu_bwd, fused_fusion_block_bwd,
+           map_epilogue)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -44,3 +49,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    map_epilogue.cells = 0

@@ -27,7 +27,8 @@ CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("conv_block", "fused_fusion", "stem", "block_probe")
+SOURCES = ("conv_block", "fused_fusion", "stem", "block_probe",
+           "map_epilogue")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -41,6 +41,8 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from drn_tpu_torch.config import require_drn
+
 # How long a collective or a barrier waits for a peer before it fails: a
 # hang ends as an error, with room for a peer's checkpoint save or eval.
 DEFAULT_TIMEOUT_S = 600.0
@@ -54,13 +56,17 @@ def check_axes(model_axis: int = 1, time_axis: int = 1,
     ExperimentConfig `cfg`) a clip grid whose T does not split into time
     blocks of even length at every level but the last (T divisible by
     time · 2**(num_levels-1)), which the stride-2 levels' halos and the
-    FPN's upsampling need to line up across ranks."""
+    FPN's upsampling need to line up across ranks. A configuration of
+    another architecture than DRN splits over neither axis
+    (NotImplementedError)."""
     if model_axis < 1 or time_axis < 1:
         raise ValueError(f"model_axis={model_axis}, time_axis={time_axis}: "
                          "each axis needs at least 1 rank")
     if world is not None and world % (model_axis * time_axis):
         raise ValueError(f"a world of {world} ranks does not divide into "
                          f"model_axis={model_axis} x time_axis={time_axis}")
+    if cfg is not None and (model_axis > 1 or time_axis > 1):
+        require_drn(cfg, "the model and time axes")
     if cfg is not None and time_axis > 1:
         t, levels = cfg.data.num_clips, cfg.model.num_levels
         unit = time_axis * 2 ** (levels - 1)

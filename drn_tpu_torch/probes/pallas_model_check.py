@@ -115,7 +115,8 @@ def expected_launches(ops: Ops, m, dev: torch.device) -> dict:
     per_step = {"fused_stem": 1, "fused_fusion_block": m.num_levels,
                 "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
                 + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0,
-                "conv_ln_relu_bwd": 0, "fused_fusion_block_bwd": 0}
+                "conv_ln_relu_bwd": 0, "fused_fusion_block_bwd": 0,
+                "map_epilogue": 0}
     on = {k for k in Ops._fields if getattr(ops, k) is getattr(KERNEL_OPS, k)}
     return {k: n if dev.type == "cuda" and k in on else 0
             for k, n in per_step.items()}

@@ -44,7 +44,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from drn_tpu_torch.config import ExperimentConfig, get_config
+from drn_tpu_torch.config import ExperimentConfig, get_config, require_drn
 from drn_tpu_torch.data.features import (ResampledLru, effective_feature_fps,
                                          resample_features)
 from drn_tpu_torch.data.vocab import Vocab, tokenize
@@ -366,6 +366,7 @@ def build_service(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None,
     from drn_tpu_torch.evaluate import build_model, resolve_device
     from drn_tpu_torch.utils.checkpoint import restore_params
 
+    require_drn(cfg, "serve")
     if checkpoint_dir and torch_checkpoint:
         raise ValueError("checkpoint_dir and torch_checkpoint are mutually "
                          "exclusive; pass exactly one parameter source")
@@ -435,6 +436,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)  # no card: raise before any read
     cfg = with_data_flags(get_config(args.config), args)
+    require_drn(cfg, "serve")
     service = build_service(
         cfg, checkpoint_dir=args.checkpoint_dir,
         torch_checkpoint=args.torch_checkpoint,

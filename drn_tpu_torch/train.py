@@ -71,7 +71,7 @@ import torch.distributed as dist
 import torch.nn as nn
 from torch.nn.parallel import DistributedDataParallel
 
-from drn_tpu_torch.config import ExperimentConfig, get_config
+from drn_tpu_torch.config import ExperimentConfig, get_config, require_drn
 from drn_tpu_torch.data.pipeline import (build_vocab, make_batch_iterator,
                                          make_dataset)
 from drn_tpu_torch.evaluate import (_refuse_out_of_scope, batch_features,
@@ -456,6 +456,7 @@ def train(cfg: ExperimentConfig, *, device=None,
     config; the model returned is the bare DRN, the same on every rank.
     Rank 0 writes the directory; every rank returns after the final save
     is on disk."""
+    require_drn(cfg, "train")
     mesh = mesh or current_mesh()
     _refuse_out_of_scope(cfg, mesh, device_features)
     split = mesh is not None and mesh.sharded
@@ -711,6 +712,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = with_data_flags(get_config(args.config), args)
+    require_drn(cfg, "train")
     model_axis = (cfg.mesh.model_axis if args.model_axis is None
                   else args.model_axis)
     time_axis = (cfg.mesh.time_axis if args.time_axis is None

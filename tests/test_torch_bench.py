@@ -302,7 +302,8 @@ def test_main_prints_only_contract_lines(capsys):
     assert set(runs[0]["launches"]) == {"fused_stem", "fused_fusion_block",
                                         "conv_ln_relu", "fused_fusion",
                                         "pallas_block", "conv_ln_relu_bwd",
-                                        "fused_fusion_block_bwd"}
+                                        "fused_fusion_block_bwd",
+                                        "map_epilogue"}
 
 
 def test_main_latency_line(capsys):

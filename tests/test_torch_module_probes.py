@@ -367,7 +367,7 @@ def test_expected_launches_follow_the_ops():
     cuda = torch.device("cuda")
     want = {"fused_stem": 1, "fused_fusion_block": 3, "conv_ln_relu": 15,
             "fused_fusion": 0, "pallas_block": 0, "conv_ln_relu_bwd": 0,
-            "fused_fusion_block_bwd": 0}
+            "fused_fusion_block_bwd": 0, "map_epilogue": 0}
     got = {k: pallas_model_check.expected_launches(ops, m, cuda)
            for k, ops in pallas_model_check.VARIANTS.items()}
     assert got["all"] == want
