@@ -21,7 +21,10 @@ but for `cli`, which runs after `mesh`:
               2D-TAN's `map_epilogue` at the 8 map-conv shapes of
               tacos_2dtan_c3d's step (B=128, 156x156 to 128x128, C=512,
               bit for bit against its plain version; library: relu(y +
-              b) * w in PyTorch's bf16 ops), held
+              b) * w in PyTorch's bf16 ops), and `nms_sweep` at 2D-TAN's
+              step (B=128, its 2,548 moments) and at DRN's B=2048, K=48
+              (bit for bit; the plain version is the PyTorch sweep it
+              replaces), held
               against its plain PyTorch version on the card (bf16
               tolerance below), and timed with CUDA events over a CUDA
               graph of back-to-back launches: the kernel, its plain
@@ -39,9 +42,10 @@ but for `cli`, which runs after `mesh`:
               through the plain versions) and its share of the card's
               bf16 peak (mfu). Then `tan`: 2D-TAN (tacos_2dtan_c3d) through
               `evaluate` on the synthetic fixture, 2 full steps of B=128:
-              the launch counts of that run (8 `map_epilogue` a step, no
-              DRN kernel), the map-conv output cells its counter counted
-              (128 x 161,984 a step), finite metrics, queries/s.
+              the launch counts of that run (8 `map_epilogue` and 1
+              `nms_sweep` a step, no DRN kernel), the map-conv output
+              cells its counter counted (128 x 161,984 a step), the NMS
+              candidates (128 x 2,548 a step), finite metrics, queries/s.
   4. train    the two-stage trainer at the same width with its training
               batch (data.batch_size=384) on one device-resident batch of
               the fixture: 5 stage-1 steps through `make_train_step` (finite,
@@ -273,8 +277,8 @@ Then the card's name and power limit (nvidia-smi), one JSON line with every
 kernel (its entry source and the header its kernel is built on; its
 launches from the `main` run, the backward kernels' from the `train` run,
 `fused_fusion`'s from rank 0 of the `mesh` phase's (1, 2, 1) run,
-`pallas_block`'s from the `probe` run, `map_epilogue`'s from the `tan`
-run), and last {"ok": true, "device":
+`pallas_block`'s from the `probe` run, `map_epilogue`'s and
+`nms_sweep`'s from the `tan` run), and last {"ok": true, "device":
 {...}}.
 
 Without a CUDA device, or run in a directory without the package, it exits
@@ -735,6 +739,65 @@ def kernel_phase(cfg, dev):
             del y
             torch.cuda.empty_cache()
 
+    def nms_rows():
+        """nms_sweep a query a block: at 2D-TAN's step (TAN_BATCH queries,
+        its 2,548 moments each in a random rank order) and at DRN's
+        B=2048, K=48 (the NMS probe's random segments), each config's
+        threshold; bit for bit against its plain version, which is the
+        PyTorch sweep the kernel replaces (so library = plain, timed over
+        2 calls a graph: ~7,650 launches a call). Bound: ~10 fp32 ops for
+        each pair the sweep must test (a survivor and a later candidate)
+        and the bytes read and written; the serial chain of survivors,
+        which bounds the kernel, is in neither."""
+        from drn_tpu_torch.models.tan import moment_cells
+        from drn_tpu_torch.ops.cuda.nms_sweep import (nms_sweep,
+                                                      nms_sweep_reference,
+                                                      sweep_threads)
+        from drn_tpu_torch.probes.nms_probe import sweep_inputs
+
+        tcfg = get_config(TAN_CONFIG)
+        m = tcfg.model
+        cells = torch.tensor(moment_cells(
+            tcfg.data.num_clips // m.frame_pool, m.scale_layers))
+        moments = torch.stack([cells[:, 0], cells[:, 1] + 1], -1).float() \
+            * m.frame_pool
+        gen = torch.Generator().manual_seed(0)
+        tan_segs = torch.stack([moments[torch.randperm(
+            len(moments), generator=gen)] for _ in range(TAN_BATCH)])
+        cases = (("tan", tan_segs, tcfg.eval.nms_iou_threshold),
+                 ("eval_b2048", torch.from_numpy(sweep_inputs(
+                     2048, cfg.eval.top_k, "random")),
+                  cfg.eval.nms_iou_threshold))
+        for path, segs, thr in cases:
+            segs = segs.to(dev).contiguous()
+            b, k, _ = segs.shape
+            with torch.no_grad():
+                want = nms_sweep_reference(segs, thr)
+                got = nms_sweep(segs, thr)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"nms_sweep {(b, k)}: {int((got != want).sum())} "
+                        "keep bits differ from the plain version")
+                ranks = torch.arange(k, device=dev)
+                pairs = int(((k - 1 - ranks) * want).sum())
+                kept = int(want.sum())
+                flops, nbytes = 10 * pairs, 9 * b * k
+                bms, by = bound(flops, nbytes)
+                plain_ms = cuda_time_ms(
+                    lambda: nms_sweep_reference(segs, thr), iters=2, reps=3)
+                rows.append(dict(
+                    path=path, kernel="nms_sweep",
+                    shape=dict(B=b, K=k, threshold=thr,
+                               threads=sweep_threads(k),
+                               kept_per_query=kept / b),
+                    per_step=1, max_abs_err=0.0,
+                    ms=cuda_time_ms(lambda: nms_sweep(segs, thr)),
+                    plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, flops=flops, bytes=nbytes))
+            del want, got
+            torch.cuda.empty_cache()
+
     fwd = [s[1:] for s in conv_block_sites(cfg.model, t0)]
     b = cfg.eval.batch_size
     conv_rows("eval", b, Counter(fwd))
@@ -765,6 +828,8 @@ def kernel_phase(cfg, dev):
 
     # 2D-TAN's map convs' epilogue, at the 8 shapes of its step.
     tan_rows(TAN_BATCH)
+    # The NMS sweep at 2D-TAN's step and at DRN's benchmark eval batch.
+    nms_rows()
 
     totals = {}
     for r in rows:
@@ -779,12 +844,12 @@ def kernel_phase(cfg, dev):
 def eval_launches_per_step(m):
     """Kernel launches of one eval step: the stem, one fusion block a
     level, 3 conv blocks a level (backbone, lateral, smooth), the two head
-    towers and the IoU head's mixes."""
+    towers and the IoU head's mixes, and the NMS sweep."""
     return {"fused_stem": 1, "fused_fusion_block": m.num_levels,
             "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
             + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0,
             "conv_ln_relu_bwd": 0, "fused_fusion_block_bwd": 0,
-            "map_epilogue": 0}
+            "map_epilogue": 0, "nms_sweep": 1}
 
 
 def train_launches_per_step(m):
@@ -796,7 +861,8 @@ def train_launches_per_step(m):
     return {"fused_stem": 2, "fused_fusion_block": m.num_levels,
             "conv_ln_relu": blocks + m.num_levels, "fused_fusion": 0,
             "pallas_block": 0, "conv_ln_relu_bwd": blocks,
-            "fused_fusion_block_bwd": m.num_levels, "map_epilogue": 0}
+            "fused_fusion_block_bwd": m.num_levels, "map_epilogue": 0,
+            "nms_sweep": 0}
 
 
 def main_path_phase(cfg, dev):
@@ -878,9 +944,10 @@ def main_path_phase(cfg, dev):
 def tan_phase(dev):
     """2D-TAN (TAN_CONFIG) through `evaluate` on the synthetic fixture,
     TAN_STEPS full steps of TAN_BATCH: the launch counts of that run (one
-    `map_epilogue` a map conv a step, no DRN kernel), the map-conv output
-    cells its counter counted (TAN_BATCH × Σ_l H_l·W_l a step), finite
-    metrics, and the run's queries/s."""
+    `map_epilogue` a map conv a step, one `nms_sweep`, no DRN kernel), the
+    map-conv output cells its counter counted (TAN_BATCH × Σ_l H_l·W_l a
+    step), the candidates the NMS sweep counted (TAN_BATCH × top_k a
+    step), finite metrics, and the run's queries/s."""
     import torch
 
     from drn_tpu_torch.config import get_config
@@ -888,6 +955,7 @@ def tan_phase(dev):
     from drn_tpu_torch.evaluate import build_model, evaluate
     from drn_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from drn_tpu_torch.ops.cuda.map_epilogue import map_epilogue
+    from drn_tpu_torch.ops.cuda.nms_sweep import nms_sweep
 
     base = get_config(TAN_CONFIG)
     cfg = base.replace(
@@ -907,16 +975,20 @@ def tan_phase(dev):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches, cells = launch_counts(), map_epilogue.cells
+    candidates = nms_sweep.candidates
     per_step = {k: 0 for k in launches}
     per_step["map_epilogue"] = cfg.model.map_layers
+    per_step["nms_sweep"] = 1
     want = {k: n * TAN_STEPS for k, n in per_step.items()}
     cells_per_step = TAN_BATCH * sum(
         model.map_conv.count_weight(l).numel()
         for l in range(cfg.model.map_layers))
-    if launches != want or cells != TAN_STEPS * cells_per_step:
+    if launches != want or cells != TAN_STEPS * cells_per_step \
+            or candidates != TAN_STEPS * TAN_BATCH * cfg.eval.top_k:
         raise AssertionError(f"2D-TAN launch counts {launches}, expected "
                              f"{want}; map-conv cells {cells}, expected "
-                             f"{TAN_STEPS * cells_per_step}")
+                             f"{TAN_STEPS * cells_per_step}; NMS "
+                             f"candidates {candidates}")
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"2D-TAN: non-finite or empty metrics: "
                              f"{metrics}")
@@ -926,7 +998,8 @@ def tan_phase(dev):
         phase="tan", config=TAN_CONFIG, dataset="synthetic",
         examples=len(dataset), steps=TAN_STEPS, batch_size=TAN_BATCH,
         launches=launches, map_conv_cells=cells,
-        map_conv_cells_per_step=cells_per_step, metrics=metrics,
+        map_conv_cells_per_step=cells_per_step, nms_candidates=candidates,
+        metrics=metrics,
         setup_s=setup_s, evaluate_s=eval_s,
         evaluate_qps=len(dataset) / eval_s,
         device=torch.cuda.get_device_name(0))
@@ -3045,6 +3118,7 @@ def main() -> int:
         "flagship_" + _mesh_tag((1, 2, 1))]["launches"][0]["fused_fusion"]
     launches["pallas_block"] = probe_launches["pallas_block"]
     launches["map_epilogue"] = tan_launches["map_epilogue"]
+    launches["nms_sweep"] = tan_launches["nms_sweep"]
 
     print(card(), flush=True)
 
@@ -3074,6 +3148,8 @@ def main() -> int:
         # 2D-TAN runs in the port alone: no TPU kernel of its own.
         "map_epilogue": ("drn_tpu_torch/ops/cuda/csrc/map_epilogue.cu", None,
                          None),
+        # The JAX package's sweep is a lax.fori_loop, no Pallas kernel.
+        "nms_sweep": ("drn_tpu_torch/ops/cuda/csrc/nms_sweep.cu", None, None),
     }
     # `pallas_block` at the probe's one shape, its own path.
     totals["probe", "pallas_block"] = Counter(
@@ -3084,10 +3160,10 @@ def main() -> int:
     # Per eval step for the eval path's kernels (their first slice), per
     # train step for the backward kernels, per step of a model-axis rank
     # for `fused_fusion`, per call at the probe's shape for `pallas_block`,
-    # per 2D-TAN eval step (B=128) for `map_epilogue`.
+    # per 2D-TAN eval step (B=128) for `map_epilogue` and `nms_sweep`.
     path = {"fused_fusion": "mesh", "pallas_block": "probe",
             "conv_ln_relu_bwd": "train", "fused_fusion_block_bwd": "train",
-            "map_epilogue": "tan"}
+            "map_epilogue": "tan", "nms_sweep": "tan"}
     kernels = []
     for name, (source, header, replaces) in where.items():
         tot = totals[path.get(name, "eval"), name]

@@ -21,6 +21,10 @@ lies in an exported graph and stays a direct ctypes launch, and so does
 `map_epilogue`, 2D-TAN's map-conv epilogue (models/tan.py; no export
 runs 2D-TAN), which counts beside its launches the map-conv output cells
 it goes over (`map_epilogue.cells`; a DRN step reads 0 of both).
+`nms_sweep`, the eval step's NMS sweep (ops/nms.py), launches through
+the custom op `torch.ops.drn_tpu_torch.nms_sweep`, once an eval step of
+either model, and counts the candidates it sweeps (`nms_sweep.candidates`,
+B·K a call, on either device).
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ from drn_tpu_torch.ops.cuda.conv_block import conv_ln_relu, conv_ln_relu_bwd
 from drn_tpu_torch.ops.cuda.fused_fusion import (fused_fusion_block,
                                                  fused_fusion_block_bwd)
 from drn_tpu_torch.ops.cuda.map_epilogue import map_epilogue
+from drn_tpu_torch.ops.cuda.nms_sweep import nms_sweep
 from drn_tpu_torch.ops.cuda.stem import fused_stem
 
 KERNELS = (fused_stem, fused_fusion_block, conv_ln_relu, _fusion.fused_fusion,
            pallas_block, conv_ln_relu_bwd, fused_fusion_block_bwd,
-           map_epilogue)
+           map_epilogue, nms_sweep)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -50,3 +55,4 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     map_epilogue.cells = 0
+    nms_sweep.candidates = 0

@@ -28,7 +28,7 @@ BUILD_ROOT = _HERE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("conv_block", "fused_fusion", "stem", "block_probe",
-           "map_epilogue")
+           "map_epilogue", "nms_sweep")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -12,9 +12,11 @@ labelled by what it runs:
   - `fori_single`: the script's `nms_fori`, the sweep of one query (the
     K-step loop, its `arange(K) > i` mask built at each step), applied
     over the batch by `torch.vmap` as the script applies it by `jax.vmap`;
-  - `package`: the port's `ops/nms.py::batched_temporal_nms`, the batched
-    K-step sweep over a precomputed upper-triangular mask, as the eval
-    step runs it. It is the same sweep as `drn_tpu/ops/nms.py`'s
+  - `package`: the port's `ops/nms.py::batched_temporal_nms`, as the eval
+    step runs it: the sort and gather, then on the card one launch of
+    `ops/cuda/nms_sweep.py`'s kernel (a block a query), on the CPU its
+    plain version, the batched K-step sweep over a precomputed
+    upper-triangular mask. It is the same sweep as `drn_tpu/ops/nms.py`'s
     `temporal_nms`, which the script's `nms_fix` row reaches: the JAX
     package removed its while-loop fixpoint (measured slower), so in the
     JAX script both rows time the one K-step sweep, and its "fixpoint"
@@ -74,6 +76,38 @@ def make_inputs(b: int, k: int, seed: int = 0):
     chain = np.stack([st, st + 10.0], -1)
     chain_scores = np.tile(np.arange(k, 0, -1, dtype=np.float32), (b, 1))
     return {"random": (segs, scores), "chain": (chain, chain_scores)}
+
+
+SWEEP_KINDS = ("random", "grid", "chain")
+
+
+def sweep_inputs(b: int, k: int, kind: str, thr: float = THRESHOLD,
+                 seed: int = 0) -> np.ndarray:
+    """Segments (B, K, 2) fp32 already in rank order, the sweep's input
+    (`ops/cuda/nms_sweep.py`):
+
+      - `random`: starts uniform in [0, 100), lengths in [0.5, 30);
+      - `grid`: starts and lengths on a coarse integer grid (0-15, 0-5):
+        identical and zero-length segments, IoUs equal to the threshold;
+      - `chain`: starts i, length 1.5·(1+thr)/(1−thr), so each candidate
+        overlaps the next above `thr` and the one after below it: every
+        rank's keep depends on the suppressed one before it (kept and
+        suppressed alternate).
+    """
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        start = rng.uniform(0, 100, (b, k))
+        length = rng.uniform(0.5, 30, (b, k))
+    elif kind == "grid":
+        start = rng.integers(0, 16, (b, k)).astype(np.float64)
+        length = rng.integers(0, 6, (b, k)).astype(np.float64)
+    elif kind == "chain":
+        start = np.tile(np.arange(k, dtype=np.float64), (b, 1))
+        length = np.full((b, k), 1.5 * (1 + thr) / (1 - thr))
+    else:
+        raise KeyError(f"no kind {kind!r}; there are {SWEEP_KINDS}")
+    start = start.astype(np.float32)
+    return np.stack([start, start + length.astype(np.float32)], -1)
 
 
 def main(argv=None) -> int:

@@ -31,8 +31,9 @@ make_eval_step`) by `bench.call_row` (`host_ms` a step of a chain of
 and `kernels_per_call` from a profiler trace); and `launches`, the package
 kernels' launches of one step, beside `expected_launches`, what the
 variant's `Ops` launch on the card (1 stem, 1 fusion a level, 3 conv
-blocks a level + the head towers + the IoU mixes when all are on; none
-off the card, where every wrapper runs its plain version). Runs on `cuda`
+blocks a level + the head towers + the IoU mixes when all are on; the
+NMS sweep's 1 in every variant; none off the card, where every wrapper
+runs its plain version). Runs on `cuda`
 unless `--device cpu`; with no card it raises.
 """
 
@@ -111,13 +112,15 @@ VARIANTS = {
 def expected_launches(ops: Ops, m, dev: torch.device) -> dict:
     """The package kernels' launches of one eval step of a model built
     with `ops` on `dev`: a kernel's count where `ops` holds it and the
-    step runs on the card, else 0."""
+    step runs on the card, else 0; the NMS sweep's (not a model op) 1 on
+    the card whatever `ops` holds."""
     per_step = {"fused_stem": 1, "fused_fusion_block": m.num_levels,
                 "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
                 + m.iou_head_layers, "fused_fusion": 0, "pallas_block": 0,
                 "conv_ln_relu_bwd": 0, "fused_fusion_block_bwd": 0,
-                "map_epilogue": 0}
+                "map_epilogue": 0, "nms_sweep": 1}
     on = {k for k in Ops._fields if getattr(ops, k) is getattr(KERNEL_OPS, k)}
+    on.add("nms_sweep")
     return {k: n if dev.type == "cuda" and k in on else 0
             for k, n in per_step.items()}
 

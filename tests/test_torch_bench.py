@@ -303,7 +303,7 @@ def test_main_prints_only_contract_lines(capsys):
                                         "conv_ln_relu", "fused_fusion",
                                         "pallas_block", "conv_ln_relu_bwd",
                                         "fused_fusion_block_bwd",
-                                        "map_epilogue"}
+                                        "map_epilogue", "nms_sweep"}
 
 
 def test_main_latency_line(capsys):

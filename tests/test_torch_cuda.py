@@ -36,7 +36,10 @@ from drn_tpu_torch.ops.cuda.conv_block import (conv_ln_relu_bwd,
 from drn_tpu_torch.ops.cuda.fused_fusion import (
     fused_fusion, fused_fusion_block_bwd, fused_fusion_block_bwd_reference,
     fused_fusion_block_reference, fused_fusion_reference)
+from drn_tpu_torch.ops.cuda.nms_sweep import (MAX_K, nms_sweep,
+                                              nms_sweep_reference)
 from drn_tpu_torch.ops.cuda.stem import fused_stem_reference, stem_plan
+from drn_tpu_torch.probes.nms_probe import SWEEP_KINDS, sweep_inputs
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1 / 64, rtol=1 / 64)
@@ -53,6 +56,10 @@ def dev():
 def _randn(dev, *shape, scale=1.0, dtype=torch.bfloat16, seed=0):
     a = np.random.default_rng(seed).standard_normal(shape) * scale
     return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+
+def _sweep_segs(dev, b, k, kind, thr=0.5, seed=0):
+    return torch.from_numpy(sweep_inputs(b, k, kind, thr, seed)).to(dev)
 
 
 def _epilogue(dev, cout):
@@ -230,6 +237,8 @@ def test_every_kernel_launches_from_a_new_thread(dev):
                                ff.fused_fusion_block_reference),
         "pallas_block": ((v, q, wf, epi[0].bfloat16(), *epi[1:], 1e-6),
                          pallas_block, pallas_block_reference),
+        "nms_sweep": ((_sweep_segs(dev, 2, 48, "random"), 0.5), nms_sweep,
+                      nms_sweep_reference),
     }
     for name, (args, kernel, plain) in calls.items():
         got = {}
@@ -325,6 +334,55 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                            (18, 1, 1)):
         assert fn(*ptrs, 2, 16, 64, 64, k, split, grid, 1e-6,
                   stream_of(x)) != 0
+    torch.cuda.synchronize()
+
+
+# The NMS sweep at every warp boundary of K, DRN's K = 48 and 2D-TAN's
+# 2,548, one query and a 2D-TAN step's 128.
+@pytest.mark.parametrize("b,k", [(b, k) for b in (1, 128)
+                                 for k in (1, 31, 32, 33, 48, 2548)])
+def test_nms_sweep_kernel_equals_plain(dev, b, k):
+    """The keep mask of one launch equals the plain version's bit for bit
+    (on the card, and on the CPU for one query), on random, tie-heavy
+    grid and suppression-chain inputs at each threshold."""
+    for kind in SWEEP_KINDS:
+        for thr in (0.3, 0.5, 0.7):
+            segs = _sweep_segs(dev, b, k, kind, thr, seed=b + k)
+            want = nms_sweep_reference(segs, thr)
+            before = launch_counts()["nms_sweep"]
+            got = nms_sweep(segs, thr)
+            assert launch_counts()["nms_sweep"] == before + 1
+            assert torch.equal(got, want), (kind, thr)
+            if b == 1:
+                assert torch.equal(got.cpu(), nms_sweep_reference(
+                    segs.cpu(), thr)), (kind, thr)
+
+
+def test_nms_sweep_kernel_past_48kb_and_what_it_refuses(dev):
+    """K = 8,192 and MAX_K take more than 48 KB of shared memory a block;
+    K above MAX_K, fp32 only, contiguous only; the entry point's own
+    refusal."""
+    for k in (8192, MAX_K):
+        segs = _sweep_segs(dev, 3, k, "random", seed=k)
+        assert torch.equal(nms_sweep(segs, 0.5),
+                           nms_sweep_reference(segs, 0.5)), k
+    with pytest.raises(ValueError, match="MAX_K"):
+        nms_sweep(torch.zeros(1, MAX_K + 1, 2, device=dev), 0.5)
+    segs = _sweep_segs(dev, 2, 48, "grid")
+    with pytest.raises(ValueError):
+        nms_sweep(segs.double(), 0.5)
+    with pytest.raises(ValueError):
+        nms_sweep(segs[:, ::2], 0.5)
+    # Past the shared memory the card gives a block, the entry point
+    # refuses, and the next launch finds no error left pending.
+    from drn_tpu_torch.ops.cuda import _build
+    from drn_tpu_torch.ops.cuda.conv_block import stream_of
+    big = torch.zeros(1, 2 * MAX_K, 2, device=dev)
+    keep = torch.empty(1, 2 * MAX_K, dtype=torch.bool, device=dev)
+    fn = _build.entry("nms_sweep", "drn_nms_sweep", 2, 3, 1)
+    assert fn(big.data_ptr(), keep.data_ptr(), 1, 2 * MAX_K, 1024, 0.5,
+              stream_of(big)) != 0
+    assert torch.equal(nms_sweep(segs, 0.5), nms_sweep_reference(segs, 0.5))
     torch.cuda.synchronize()
 
 
@@ -814,7 +872,8 @@ def test_exported_cuda_step_equals_the_live_step(dev, tmp_path):
         "drn_tpu_torch.fused_stem.default": 1,
         "drn_tpu_torch.fused_fusion_block.default": m.num_levels,
         "drn_tpu_torch.conv_ln_relu.default": 3 * m.num_levels
-        + 2 * m.head_tower_layers + m.iou_head_layers}
+        + 2 * m.head_tower_layers + m.iou_head_layers,
+        "drn_tpu_torch.nms_sweep.default": 1}
     path = str(tmp_path / "drn.pt2")
     export.save_exported(ep, sidecar, path)
     call, sidecar = export.load_exported(path)
@@ -824,9 +883,11 @@ def test_exported_cuda_step_equals_the_live_step(dev, tmp_path):
     for seed in (3, 4):
         live = build_model(cfg, seed=seed)
         want = export.EvalStep(cfg, live)(**batch)
-        before = launch_counts()["fused_stem"]
+        before = launch_counts()
         got = call(live.state_dict(), batch)
-        assert launch_counts()["fused_stem"] == before + 1
+        after = launch_counts()
+        assert [after[k] - before[k] for k in ("fused_stem", "nms_sweep")] \
+            == [1, 1]
         for k in ("segments_seconds", "nms_keep", "scores", "n_valid"):
             assert torch.equal(got[k], want[k]), (seed, k)
         assert {k: v.item() for k, v in got["recall_counts"].items()} == \

@@ -44,6 +44,7 @@ from drn_tpu_torch.config import get_config
 from drn_tpu_torch.convert import flax_params_to_state_dict
 from drn_tpu_torch.evaluate import build_model, make_eval_step, to_device
 from drn_tpu_torch.ops.cuda import conv_block, fused_fusion, stem
+from drn_tpu_torch.ops.cuda.nms_sweep import nms_sweep_reference
 
 ROOT = Path(__file__).resolve().parents[1]
 FP32 = dict(atol=1e-4, rtol=1e-4)
@@ -260,7 +261,7 @@ def test_artifact_matches_the_jax_artifact(artifact, jax_artifact, seed):
 def _launches_per_step(m):
     return {"fused_stem": 1, "fused_fusion_block": m.num_levels,
             "conv_ln_relu": 3 * m.num_levels + 2 * m.head_tower_layers
-            + m.iou_head_layers}
+            + m.iou_head_layers, "nms_sweep": 1}
 
 
 @pytest.mark.parametrize("name,batch_size", [
@@ -315,6 +316,7 @@ def test_fake_functions_match_the_plain_versions(t, cin, cout, k, stride):
         "fused_fusion_block_bwd": ([(2, t, cin), (2, cin), (k, cin, cout)]
                                    + [(cout,)] * 3 + [(2, t, cout)],
                                    [bf, bf, bf, f32, f32, f32, bf], ()),
+        "nms_sweep": ([(2, t, 2)], [f32], (0.5,)),
     }
     plain = {"conv_ln_relu": conv_block.conv_ln_relu_reference,
              "fused_fusion_block": fused_fusion.fused_fusion_block_reference,
@@ -323,7 +325,8 @@ def test_fake_functions_match_the_plain_versions(t, cin, cout, k, stride):
                  *a[:7], torch.bfloat16, *a[7:]),
              "conv_ln_relu_bwd": conv_block.conv_ln_relu_bwd_reference,
              "fused_fusion_block_bwd":
-                 fused_fusion.fused_fusion_block_bwd_reference}
+                 fused_fusion.fused_fusion_block_bwd_reference,
+             "nms_sweep": nms_sweep_reference}
     for name, (dims, dtypes, rest) in shapes.items():
         if not name.startswith("conv_ln_relu") and stride != 1:
             continue  # the fusion kernels and the stem have stride 1

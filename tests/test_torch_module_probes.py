@@ -367,15 +367,18 @@ def test_expected_launches_follow_the_ops():
     cuda = torch.device("cuda")
     want = {"fused_stem": 1, "fused_fusion_block": 3, "conv_ln_relu": 15,
             "fused_fusion": 0, "pallas_block": 0, "conv_ln_relu_bwd": 0,
-            "fused_fusion_block_bwd": 0, "map_epilogue": 0}
+            "fused_fusion_block_bwd": 0, "map_epilogue": 0, "nms_sweep": 1}
     got = {k: pallas_model_check.expected_launches(ops, m, cuda)
            for k, ops in pallas_model_check.VARIANTS.items()}
     assert got["all"] == want
     assert got["stem+fusion"] == {**want, "conv_ln_relu": 0}
     assert got["conv_blocks"] == {**want, "fused_stem": 0,
                                   "fused_fusion_block": 0}
-    assert not any(got["plain"].values()) and not any(
-        got["library"].values())
+    # The eval step's NMS sweeps on the card whatever the model's ops.
+    sweep_only = {k: int(k == "nms_sweep") for k in want}
+    assert got["plain"] == sweep_only and got["library"] == sweep_only
+    assert not any(pallas_model_check.expected_launches(
+        pallas_model_check.KERNEL_OPS, m, torch.device("cpu")).values())
 
 
 # Each probe's main with no --device, and the arguments it requires.
