@@ -39,16 +39,7 @@ from drn_tpu_torch.config import get_config
 from drn_tpu_torch.convert import flax_params_to_state_dict
 from drn_tpu_torch.models import DRN
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Torch's CPU ops on one thread: these tests run many small steps,
-    which torch's thread pool slows many times over when the suite's
-    parallel workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tiny(cfg):

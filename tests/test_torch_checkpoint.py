@@ -38,6 +38,8 @@ from drn_tpu_torch.utils.checkpoint import (BestCheckpointTracker,
                                             load_model_state,
                                             prefer_best_dir)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = 16  # batch 8: two steps an epoch
 BEST_STEP, LAST_STEP = 2, 5

@@ -36,6 +36,7 @@ from drn_tpu_torch import train as port_train
 from drn_tpu_torch.utils.checkpoint import CheckpointManager
 
 from test_torch_parallel import REPO, _free_port, _rank_env, _wait_all
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAME = "cli_mesh_tiny"
 EXAMPLES = 16  # B=8: two steps an epoch
@@ -73,14 +74,6 @@ def shard_model(model, mesh):  # the layout the CLI built, and its splits
 train.shard_model = shard_model
 train.main(sys.argv[3:])
 """
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -26,6 +26,8 @@ from drn_tpu_torch.ops.cuda import conv_block
 from drn_tpu_torch.ops.cuda.conv_block import (CONV_SPLITS, TILE_ROWS,
                                                conv_plan, same_padding)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 H100_SMS = 132
 CSRC = Path(conv_block.__file__).parent / "csrc"
 SOURCE = (CSRC / "conv_sm90.cuh").read_text()

@@ -41,6 +41,8 @@ from drn_tpu_torch.ops.cuda.nms_sweep import (MAX_K, nms_sweep,
 from drn_tpu_torch.ops.cuda.stem import fused_stem_reference, stem_plan
 from drn_tpu_torch.probes.nms_probe import SWEEP_KINDS, sweep_inputs
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1 / 64, rtol=1 / 64)
 GRAD_REL = 2e-2

@@ -27,6 +27,8 @@ from drn_tpu_torch.config import get_config
 from drn_tpu_torch.data import datasets, features, validate, vocab
 from drn_tpu_torch.data.pipeline import build_vocab, make_dataset
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 WORDS = ("person opens the door closes a window reads book someone walks "
          "into room sits on chair picks up cup laughs 2nd o'clock").split()
 F_DIM = 128  # synthetic_tiny's feature_dim

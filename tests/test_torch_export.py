@@ -46,6 +46,8 @@ from drn_tpu_torch.evaluate import build_model, make_eval_step, to_device
 from drn_tpu_torch.ops.cuda import conv_block, fused_fusion, stem
 from drn_tpu_torch.ops.cuda.nms_sweep import nms_sweep_reference
 
+from torch_threads import child_env, one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 FP32 = dict(atol=1e-4, rtol=1e-4)
 B = 4
@@ -122,9 +124,9 @@ def test_exported_step_round_trips_in_a_fresh_process(artifact, tmp_path):
         "'drn_tpu_torch.models', 'drn_tpu_torch.config', "
         "'drn_tpu_torch.evaluate', 'drn_tpu_torch.data')) or "
         "m.split('.')[0] in ('jax', 'flax', 'drn_tpu'))))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=child_env(), capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
     _assert_equal(torch.load(tmp_path / "out.pth"),

@@ -36,6 +36,8 @@ from drn_tpu_torch.data.pipeline import (BatchIterator, build_vocab,
 from drn_tpu_torch.data.vocab import UNK_ID
 from drn_tpu_torch.models import DRN
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 WORDS = ("person opens the door closes a window reads book walks sits on "
          "chair someone laughs").split()
 MISSING = {"someone", "laughs"}  # corpus words without a GloVe row: UNK

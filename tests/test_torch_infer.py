@@ -25,6 +25,8 @@ from drn_tpu.infer import main as jax_main
 from drn_tpu.parity.torch_model import TorchDRNParity
 from drn_tpu_torch import infer
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 LINE = re.compile(r"^\s+(\d+)\. \[\s*([-\d.]+)s,\s*([-\d.]+)s\]\s+"
                   r"score=([\d.]+)$")
 # dtype → (segment tolerance in seconds, as a share of the duration; score)

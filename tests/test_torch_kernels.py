@@ -23,6 +23,8 @@ from drn_tpu_torch.ops.cuda import (conv_ln_relu, fused_fusion_block,
                                     fused_stem, launch_counts)
 from drn_tpu_torch.ops.cuda.conv_block import same_padding
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4, 1e-4, 1e-4, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 1 / 128, 1 / 128,
                        1 / 16, 1 / 32)}

@@ -43,6 +43,8 @@ from drn_tpu_torch.data.synthetic import SyntheticDataset
 from drn_tpu_torch.evaluate import make_eval_step, to_device
 from drn_tpu_torch.models import DRN, location_metadata
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 FP32 = dict(atol=1e-4, rtol=1e-4)
 # bf16, port (plain versions) vs the JAX package's XLA path: both round
 # every conv block's output to bf16, but the port adds the conv bias to the

@@ -43,14 +43,7 @@ from scripts import embed_probe as jax_embed
 from scripts import nms_probe as jax_nms
 from scripts import sample_probe as jax_sample
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Torch's CPU ops on one thread (see tests/test_torch_probes.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -20,6 +20,8 @@ from drn_tpu import native as jax_native
 from drn_tpu_torch import native
 from drn_tpu_torch.data.features import FeatureReader, resample_features
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

@@ -16,6 +16,8 @@ from drn_tpu_torch.ops.nms import (
     batched_temporal_nms as port_batched_temporal_nms)
 from drn_tpu_torch.probes.nms_probe import SWEEP_KINDS, sweep_inputs
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("kind", SWEEP_KINDS)
 @pytest.mark.parametrize("b,k", [(3, 1), (4, 33), (2, 48), (2, 300)])

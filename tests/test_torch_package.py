@@ -2,9 +2,9 @@
 nothing of JAX nor of `drn_tpu`, and its entry points refuse to run on the
 CPU unless asked to."""
 
+import ast
 import dataclasses
 import datetime
-import os
 import re
 import socket
 import subprocess
@@ -19,6 +19,9 @@ import drn_tpu.config as jax_config
 import drn_tpu_torch.config as port_config
 from drn_tpu_torch import evaluate as port_eval
 from drn_tpu_torch.parallel import make_mesh
+
+from torch_threads import (THREADS_VAR, child_env,  # noqa: F401
+                           one_torch_thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "drn_tpu_torch").rglob("*.py")) + [
@@ -63,9 +66,9 @@ def test_port_imports_no_jax_and_nothing_of_drn_tpu():
         "print(' '.join(m for m in sys.modules "
         "if m.startswith('drn_tpu_torch')))\n"
         "print(bad)\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=child_env(), capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     loaded, bad = out.stdout.strip().splitlines()
     assert bad == "[]", bad
@@ -98,6 +101,73 @@ def test_port_source_names_no_jax_nor_drn_tpu(path):
         modules = re.findall(r"python\s+-m\s+(\S+)", text)
         assert modules and all(m.startswith("drn_tpu_torch.")
                                for m in modules), modules
+
+
+PORT_TESTS = sorted(Path(__file__).parent.glob("test_torch_*.py"))
+SUBPROCESS_STARTS = ("run", "Popen", "call", "check_call", "check_output")
+
+
+def _named(node, name: str) -> bool:
+    return isinstance(node, ast.Name) and node.id == name
+
+
+def _starts_python(call: ast.Call) -> bool:
+    """A `subprocess` call whose argv runs an interpreter: sys.executable,
+    or bash on a committed script of the port (its commands are python)."""
+    func = call.func
+    if not (isinstance(func, ast.Attribute) and _named(func.value, "subprocess")
+            and func.attr in SUBPROCESS_STARTS and call.args
+            and isinstance(call.args[0], ast.List) and call.args[0].elts):
+        return False
+    argv = call.args[0].elts
+    if isinstance(argv[0], ast.Attribute) and _named(argv[0].value, "sys"):
+        return argv[0].attr == "executable"
+    return (isinstance(argv[0], ast.Constant) and argv[0].value == "bash"
+            and len(argv) > 1 and isinstance(argv[1], ast.Constant))
+
+
+def thread_rule_faults(paths) -> list:
+    """What breaks tests/torch_threads.py's rule in the files at `paths`:
+    a file that does not import its fixture, pins a thread count itself or
+    imports multiprocessing (whose children would not get the rule), or
+    starts a Python child whose `env=` is not a call of `child_env` or of
+    a function that calls it (test_torch_parallel's `_rank_env`)."""
+    trees = {p: ast.parse(p.read_text()) for p in paths}
+    helpers = {"child_env"} | {
+        n.name for t in trees.values() for n in t.body
+        if isinstance(n, ast.FunctionDef) and any(
+            isinstance(c, ast.Call) and _named(c.func, "child_env")
+            for c in ast.walk(n))}
+    faults = []
+    for path, tree in trees.items():
+        name, text = path.name, path.read_text()
+        if not any(isinstance(n, ast.ImportFrom) and n.module == "torch_threads"
+                   and "one_torch_thread" in {a.name for a in n.names}
+                   for n in tree.body):
+            faults.append(f"{name}: does not import one_torch_thread")
+        if re.search(r"\.set_num_threads\(", text) or THREADS_VAR in text:
+            faults.append(f"{name}: sets a thread count of its own")
+        for node in ast.walk(tree):
+            if (isinstance(node, (ast.Import, ast.ImportFrom))
+                    and "multiprocessing" in ast.unparse(node)):
+                faults.append(f"{name}:{node.lineno}: imports multiprocessing")
+            if isinstance(node, ast.Call) and _starts_python(node):
+                env = next((k.value for k in node.keywords if k.arg == "env"),
+                           None)
+                if not (isinstance(env, ast.Call)
+                        and isinstance(env.func, ast.Name)
+                        and env.func.id in helpers):
+                    faults.append(f"{name}:{node.lineno}: a Python child "
+                                  "without env=child_env(...)")
+    return faults
+
+
+def test_every_port_test_runs_torch_on_one_thread():
+    """The suite's xdist workers share the cores, so every port test file
+    takes tests/torch_threads.py's fixture and gives every Python child it
+    starts `child_env`, and none keeps a copy of its own."""
+    assert Path(__file__) in PORT_TESTS
+    assert thread_rule_faults(PORT_TESTS) == []
 
 
 @pytest.fixture

@@ -23,7 +23,6 @@ can flip).
 
 import dataclasses
 import json
-import os
 import signal
 import socket
 import subprocess
@@ -55,6 +54,8 @@ from drn_tpu_torch.models.losses import drn_loss
 from drn_tpu_torch.parallel import check_axes, make_mesh, row_block
 from drn_tpu_torch.utils.preemption import PREEMPTED_EXIT_CODE
 
+from torch_threads import child_env, one_torch_thread  # noqa: F401
+
 REPO = str(Path(__file__).resolve().parents[1])
 CHILD_TIMEOUT_S = 180
 # 14 examples at B=8: each epoch's second batch holds 6 rows, 4 on rank 0
@@ -78,9 +79,9 @@ def _free_port() -> int:
 
 
 def _rank_env(rank: int, world: int, port: int) -> dict:
-    return {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
-            "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
-            "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1"}
+    return child_env(RANK=str(rank), WORLD_SIZE=str(world),
+                     LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port))
 
 
 def _wait_all(procs, on_line=None):

@@ -23,6 +23,8 @@ from drn_tpu_torch.utils import preemption as P
 from drn_tpu_torch.utils.preemption import (PREEMPTED_EXIT_CODE,
                                             PreemptionGuard, exit_code_for)
 
+from torch_threads import child_env, one_torch_thread  # noqa: F401
+
 REPO = str(Path(__file__).resolve().parents[1])
 CHILD_TIMEOUT_S = 120
 
@@ -102,18 +104,14 @@ def test_a_process_group_of_several_raises(monkeypatch):
 
 
 def _spawn_trainer(ckpt_dir, max_steps, *extra, **popen_kw):
-    """The train CLI on one torch thread, as the loader child runs. With
-    its default of one OpenMP thread a core, the child's threads spin at
-    every parallel region's barrier while the test run's other processes
-    hold the cores: on 8 cores under 6 xdist workers a synthetic_tiny step
-    took 8.2 s instead of 0.07 s, so a 10-step child ran past
-    CHILD_TIMEOUT_S and was killed (rc -9)."""
+    """The train CLI at synthetic_tiny, on one torch thread as every child
+    of a port test (tests/torch_threads.py)."""
     return subprocess.Popen(
         [sys.executable, "-u", "-m", "drn_tpu_torch.train", "--config",
          "synthetic_tiny", "--device", "cpu", "--epochs", "50",
          "--max-steps", str(max_steps), "--checkpoint-dir", str(ckpt_dir),
          *extra],
-        cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
+        cwd=REPO, env=child_env(),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
         **popen_kw)
 
@@ -284,7 +282,7 @@ def test_sigterm_to_a_loader_group_at_start_loses_no_batch(tmp_path):
     script.write_text(_LOADER_CHILD)
     proc = subprocess.Popen(
         [sys.executable, str(script)], cwd=REPO, text=True,
-        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"},
+        env=child_env(),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         start_new_session=True)
     try:

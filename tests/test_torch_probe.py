@@ -26,6 +26,8 @@ from drn_tpu_torch.probes import pallas_block_probe as probe
 from scripts.pallas_block_probe import pallas_block as jax_pallas_block
 from scripts.pallas_block_probe import xla_block as jax_xla_block
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 1 / 128, 1 / 128)}
 D = 128

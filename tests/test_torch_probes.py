@@ -13,7 +13,6 @@ import functools
 import json
 
 import pytest
-import torch
 
 from drn_tpu_torch import bench
 from drn_tpu_torch import evaluate as port_eval
@@ -23,18 +22,9 @@ from drn_tpu_torch.probes import train_probe
 from drn_tpu_torch.train import make_optimizer
 from scripts import host_pipeline_probe as jax_host_pipeline
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CORPUS = dict(videos=5, dim=16, rows_lo=8, rows_hi=12, queries_per_video=3)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Torch's CPU ops on one thread: these tests run many small steps,
-    which torch's thread pool slows many times over when the suite's
-    parallel workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -48,17 +48,10 @@ from drn_tpu_torch.probes import (atscale_synthetic, int8_probe, recipe_demo,
                                   recipe_untrained_rescore_probe,
                                   stage2_regime_ab)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SCRIPTS = os.path.join(os.path.dirname(__file__), "..", "scripts")
 EXAMPLES = 32  # a split of the cut fixture
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Torch's CPU ops on one thread (see tests/test_torch_probes.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def load_script(name):

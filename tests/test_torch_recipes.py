@@ -45,6 +45,8 @@ from drn_tpu_torch import train as port_train
 from drn_tpu_torch.data.pipeline import make_dataset
 from drn_tpu_torch.utils.checkpoint import load_model_state, prefer_best_dir
 
+from torch_threads import child_env, one_torch_thread  # noqa: F401
+
 h5py = pytest.importorskip("h5py")
 
 REPO = Path(__file__).resolve().parents[1]
@@ -55,14 +57,6 @@ SCRIPTS = ("smoke_synthetic", "train_charades_c3d", "train_activitynet",
 STEPS = {"smoke": (10, 5), "charades": (2, 2), "activitynet": (2, 2),
          "tacos": (2, 2)}
 LOSS_RTOL = METRIC_ATOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _twin(mod, family):
@@ -235,11 +229,10 @@ def test_the_recipe_chain_matches_jax(family, tmp_path, monkeypatch, capsys):
 def test_the_smoke_script_runs_on_the_cpu(tmp_path):
     """drn_tpu_torch/scripts/smoke_synthetic.sh as users run it, with
     DEVICE=cpu: three CLI processes, rc 0, `smoke ok`."""
-    env = {**os.environ, "DEVICE": "cpu", "TMPDIR": str(tmp_path),
-           "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     out = subprocess.run(
         ["bash", "drn_tpu_torch/scripts/smoke_synthetic.sh"], cwd=REPO,
-        env=env, capture_output=True, text=True, timeout=300)
+        env=child_env(DEVICE="cpu", TMPDIR=str(tmp_path)),
+        capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "smoke ok", out.stdout
     assert "R@1,IoU=0.5:" in out.stdout

@@ -23,17 +23,9 @@ from drn_tpu_torch.ops.cuda.stem import fused_stem_reference
 from drn_tpu_torch.parallel.mesh import (Mesh, check_axes, time_block,
                                          time_slice)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 BLOCKS = 2
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Torch's CPU ops on one thread (the suite's workers share the
-    cores), restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _halo(x, r, left, right):

@@ -41,6 +41,8 @@ from drn_tpu_torch.convert import flax_params_to_state_dict
 from drn_tpu_torch.data.features import resample_features
 from drn_tpu_torch.data.vocab import Vocab
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 FP32 = dict(atol=1e-4, rtol=1e-4)
 BATCH, TOP, WAIT_MS = 4, 3, 10.0
 CORPUS = {"V0": 1, "V1": 20, "V2": 32, "V3": 50}  # video → raw rows

@@ -21,28 +21,14 @@ from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
 from drn_tpu_torch.models import drn as drn_module
 from drn_tpu_torch.utils.profiling import span, span_table
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 EVAL = ("pass", "batch", "step", "gather", "forward", "post", "fetch")
 TRAIN = ("gather", "forward", "loss", "backward", "optimizer")
 # An op that each part's forward runs and no other part's does.
 PART_OPS = {"query_encoder": "aten::lstm", "backbone": "FusedStemFn",
             "fusion": "FusedFusionBlockFn", "fpn": "aten::repeat_interleave",
             "heads": "aten::exp", "iou_head": "aten::floor"}
-
-
-@contextlib.contextmanager
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    with one_thread():
-        yield
 
 
 def tiny(examples: int = 24):
@@ -77,12 +63,11 @@ def within(events, name, outer):
 @pytest.fixture(scope="module")
 def eval_trace(tmp_path_factory):
     """One `evaluate()` pass over 3 batches of 8, profiled."""
-    with one_thread():
-        cfg = tiny()
-        model = ev.build_model(cfg, device="cpu")
-        ev.evaluate(cfg, model, device="cpu")  # warm
-        return profiled(lambda: ev.evaluate(cfg, model, device="cpu"),
-                        tmp_path_factory.mktemp("spans") / "eval.json")
+    cfg = tiny()
+    model = ev.build_model(cfg, device="cpu")
+    ev.evaluate(cfg, model, device="cpu")  # warm
+    return profiled(lambda: ev.evaluate(cfg, model, device="cpu"),
+                    tmp_path_factory.mktemp("spans") / "eval.json")
 
 
 def test_without_a_profiler_a_span_is_the_shared_no_op():

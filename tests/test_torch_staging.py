@@ -37,6 +37,8 @@ from drn_tpu_torch.data.pipeline import BatchIterator, make_dataset
 from drn_tpu_torch.data.staging import stage_video_features
 from drn_tpu_torch.models import DRN
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 WORDS = "person opens the door closes a window reads book walks sits".split()
 
 

@@ -16,6 +16,8 @@ import pytest
 from drn_tpu_torch.config import get_config, list_configs
 from drn_tpu_torch.ops.cuda import stem
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CSRC = Path(stem.__file__).parent / "csrc"
 # The Hopper building blocks shared with the conv kernel (the wgmma
 # products, the k-tile depth, the block's shared-memory limit), then the

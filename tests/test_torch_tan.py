@@ -36,6 +36,8 @@ from port_bench.reference import tan as ref_tan
 from port_bench.tan_gains import gains as derive_gains
 from port_bench.work import _tan as work
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 TINY = "tacos_2dtan_tiny"
 DRN_NAMES = ["activitynet_c3d", "activitynet_i3d", "charades_c3d",
              "charades_c3d_batched_eval", "charades_i3d", "synthetic_recipe",

@@ -60,6 +60,7 @@ from drn_tpu_torch.models.layers import block_layer_norm, layer_norm, row_sums
 from drn_tpu_torch.parallel.sharding import (gate_blocks, param_specs,
                                              shard, shard_params)
 from test_torch_parallel import REPO, _free_port, _rank_env, _wait_all
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 EXAMPLES = 14
@@ -71,16 +72,6 @@ LAYOUTS = {"model": (2, 1), "time": (1, 2)}
 # The resumed run's last step: step 2 ends the first epoch (14 examples
 # at B=8), whose eval keeps best/2.pth; step 3 is the second epoch's.
 RESUMED = 3
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Torch's CPU ops on one thread (the suite's workers share the
-    cores), restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _apply(cfg):
@@ -177,7 +168,6 @@ WORKER = r"""
 import dataclasses, json, shutil, sys
 import torch
 import torch.distributed as dist
-torch.set_num_threads(1)
 from drn_tpu_torch import train as T
 from drn_tpu_torch.config import get_config
 from drn_tpu_torch.evaluate import evaluate
@@ -477,7 +467,6 @@ def test_a_split_run_resumes_and_evaluates_as_one_process(two_ranks, axis):
 SPLIT_EVAL = r"""
 import dataclasses, json, sys
 import torch
-torch.set_num_threads(1)
 from drn_tpu_torch.config import get_config
 from drn_tpu_torch.evaluate import build_model, evaluate
 from drn_tpu_torch.parallel import init_distributed, make_mesh, sharding

@@ -14,6 +14,8 @@ from drn_tpu.utils.logging import MetricLogger as JaxMetricLogger
 from drn_tpu_torch import train as port_train
 from drn_tpu_torch.utils.logging import MetricLogger
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 PREFIX = "train/synthetic_tiny/stage1"
 RECORDS = [(1, {"loss": 2.5, "epoch": 0, "note": "x"}),
            (10, {"loss": 1.25, "match_loss": 0.5, "epoch": 0}),

@@ -44,6 +44,8 @@ from drn_tpu_torch.models import DRN, location_metadata
 from drn_tpu_torch.models.losses import assign_targets, drn_loss
 from drn_tpu_torch.parallel import make_mesh
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 EXAMPLES = 16  # two batches of 8: steps_per_epoch 2
 
 

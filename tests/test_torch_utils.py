@@ -42,6 +42,8 @@ from drn_tpu_torch.utils.flops import estimate_flops
 from drn_tpu_torch.utils.profiling import (kernel_stats, throughput, time_fn,
                                           trace, union_us)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 # --- FLOPs ---------------------------------------------------------------
 
 

@@ -20,6 +20,8 @@ from drn_tpu_torch.data import pipeline
 from drn_tpu_torch.data.pipeline import (BatchIterator, WorkerBatchIterator,
                                          make_batch_iterator, make_dataset)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def ds():
